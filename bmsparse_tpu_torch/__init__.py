@@ -9,11 +9,16 @@ Public API:
     read_matrix_market, mmread_bmsparse
     prepare (ops.plan)            — tiered per-matrix SpMV plan
     spmv                          — u = A @ v
+    spgemm                        — C = A @ B (ops.spgemm)
+    prepare_product               — cached C = A @ B per structure
     mean_relative_error           — reference `compare()` semantics
 
 Kernels (csrc/, built with nvcc at first use on a CUDA device):
     dia_spmv     (ops/cuda/spmv_kernel.py) — the DIA tier
     sell_window  (ops/cuda/sell_kernel.py) — windowed SELL groups
+    numeric_sell (ops/cuda/spgemm_kernel.py) — SpGEMM task-SELL products
+    numeric_window (ops/cuda/spgemm_window_kernel.py) — SpGEMM products
+                 of K-groups with tile windows
 """
 
 from .config import BLOCK_HEIGHT, BLOCK_SIZE, BLOCK_WIDTH, get_config, set_config
@@ -22,6 +27,8 @@ from .format.convert import bmsparse_to_coo, coo_to_bmsparse
 from .io.matrix_market import mmread_bmsparse, read_matrix_market
 from .oracle.compare import assert_allclose_sparse, mean_relative_error
 from .ops.plan import Prepared, prepare
+from .ops.product import prepare_product
+from .ops.spgemm import spgemm
 from .ops.spmv import spmv
 
 __version__ = "0.1.0"

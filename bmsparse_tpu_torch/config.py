@@ -36,6 +36,22 @@ class Config:
     # a CUDA device, the plain torch versions on the CPU), "cuda" (the
     # kernels; raises on CPU tensors) or "plain" (plain torch everywhere).
     spmv_impl: str = os.environ.get("BMSP_TORCH_SPMV_IMPL", "auto")
+    # Default SpGEMM implementation, with the same three values as
+    # spmv_impl ("xla" names the JAX package's chunked segment-sum path,
+    # which is not ported: ops/spgemm.py raises for it).
+    spgemm_impl: str = os.environ.get("BMSP_SPGEMM_IMPL", "auto")
+    # Tile-window plans for the SpGEMM K-groups (csrc/spgemm_window.cu):
+    # "auto" = on for CUDA operands, "on" = always (tests, so that the
+    # plan equals the JAX package's under "on"), "off" = never. Read at
+    # plan time, so a cached plan stays self-consistent.
+    spgemm_winkernel: str = os.environ.get("BMSP_SPGEMM_WINKERNEL", "auto")
+    # SpGEMM compress stage. Only the row scatter-add is ported, so every
+    # value runs it except "fold" and "mxu", the JAX package's
+    # alternatives, which raise until they are ported; then this field
+    # becomes a real choice.
+    spgemm_compress: str = os.environ.get("BMSP_SPGEMM_COMPRESS", "auto")
+    # Per-phase timing of spgemm() (the reference's VERBOSE flag).
+    verbose: bool = _env_bool("BMSP_VERBOSE", False)
 
 
 _config = Config()

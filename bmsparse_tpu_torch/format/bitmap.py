@@ -22,9 +22,11 @@ import torch
 
 from ..config import BLOCK_SIZE
 
-# Shift that brings address a to bit 0: addresses 0..31 live in hi at bit
-# (31-a); addresses 32..63 live in lo at bit (63-a).
-_SHIFTS = torch.arange(31, -1, -1, dtype=torch.int64)
+def _shifts(device) -> torch.Tensor:
+    """Shift that brings address a to bit 0: addresses 0..31 live in hi at
+    bit (31-a); addresses 32..63 live in lo at bit (63-a). Made on the
+    device (a copy from the host would synchronise its stream)."""
+    return torch.arange(31, -1, -1, dtype=torch.int64, device=device)
 
 
 def words_to_tensor(w: np.ndarray, device=None) -> torch.Tensor:
@@ -40,7 +42,7 @@ def tensor_to_words_np(t: torch.Tensor) -> np.ndarray:
 
 def expand_bits(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """(…,) word pair -> (…, 64) int32 in {0,1}, indexed by address."""
-    sh = _SHIFTS.to(hi.device)
+    sh = _shifts(hi.device)
     hi_bits = (hi.long()[..., None] >> sh) & 1
     lo_bits = (lo.long()[..., None] >> sh) & 1
     return torch.cat([hi_bits, lo_bits], dim=-1).to(torch.int32)
@@ -49,7 +51,7 @@ def expand_bits(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 def pack_bits(bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(…, 64) {0,1} -> (hi, lo) int64 words. Inverse of `expand_bits`."""
     b = bits.long()
-    sh = _SHIFTS.to(bits.device)
+    sh = _shifts(bits.device)
     hi = (b[..., :32] << sh).sum(dim=-1)
     lo = (b[..., 32:] << sh).sum(dim=-1)
     return hi, lo
@@ -75,6 +77,51 @@ def prefix_popcount(bits: torch.Tensor) -> torch.Tensor:
     vectorized restatement of ``__popcll(bmp >> (64 - a))``.
     """
     return (torch.cumsum(bits, dim=-1) - bits).to(torch.int32)
+
+
+def bitmap_product(
+    a_hi: torch.Tensor, a_lo: torch.Tensor,
+    b_hi: torch.Tensor, b_lo: torch.Tensor,
+    b_transposed: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Structural product of block bitmaps: C(i,k) = OR_j A(i,j) AND B(j,k)
+    (the reference's `bmp_calculator`, ref: src/bmSparse_SPGEMM.cu:787-810).
+    A is row-major; B is column-major when ``b_transposed``. The C words
+    are row-major, int64 holding 32-bit patterns.
+
+    Fast path (b_transposed): A's row i and B's column k are whole bytes
+    of the words, so C's row i is the byte sum_k ((row_i & col_k) != 0)
+    << (7 - k). The words are non-negative int64, so a right shift never
+    brings in a sign bit, and the mask keeps one byte.
+    """
+    if b_transposed:
+        a_hi, a_lo, b_hi, b_lo = (x.long() for x in (a_hi, a_lo, b_hi, b_lo))
+        rows = [(a_hi >> (8 * (3 - i))) & 0xFF for i in range(4)] + [
+            (a_lo >> (8 * (7 - i))) & 0xFF for i in range(4, 8)]
+        cols = torch.stack(
+            [(b_hi >> (8 * (3 - k))) & 0xFF for k in range(4)]
+            + [(b_lo >> (8 * (7 - k))) & 0xFF for k in range(4, 8)], dim=-1)
+        weights = 1 << torch.arange(7, -1, -1, device=a_hi.device)
+        c_bytes = [((r[..., None] & cols) != 0).long().mul(weights).sum(-1)
+                   for r in rows]
+        c_hi = (c_bytes[0] << 24) | (c_bytes[1] << 16) | (c_bytes[2] << 8) \
+            | c_bytes[3]
+        c_lo = (c_bytes[4] << 24) | (c_bytes[5] << 16) | (c_bytes[6] << 8) \
+            | c_bytes[7]
+        return c_hi, c_lo
+
+    from .blockops import block_product_bits_flat
+
+    c_bits = block_product_bits_flat(
+        expand_bits(a_hi, a_lo), expand_bits(b_hi, b_lo), b_transposed)
+    return pack_bits(c_bits)
+
+
+def bitmap_or(
+    a_hi: torch.Tensor, a_lo: torch.Tensor,
+    b_hi: torch.Tensor, b_lo: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    return a_hi | b_hi, a_lo | b_lo
 
 
 def words_to_u64_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:

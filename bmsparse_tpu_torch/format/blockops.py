@@ -1,21 +1,13 @@
 """Flat 8x8-block arithmetic in (n, 64) slot layout.
 
-Counterpart of ``bmsparse_tpu/format/blockops.py`` for the SpMV slice:
-slot = rel_i*8 + rel_j (row-major). The layout is kept so that the
-container's decompressed tiles compare slot for slot with the JAX
-package's.
+Counterpart of ``bmsparse_tpu/format/blockops.py``: slot = rel_i*8 + rel_j
+(row-major). The layout is kept so that the container's decompressed
+tiles compare slot for slot with the JAX package's.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-
-# Permutation taking transposed-storage slots (rel_j*8+rel_i) to row-major
-# slots (rel_i*8+rel_j); it is an involution.
-TRANSPOSE_PERM = (
-    (np.arange(64) % 8) * 8 + (np.arange(64) // 8)
-).astype(np.int64)
 
 
 def block_matvec_flat(
@@ -29,9 +21,26 @@ def block_matvec_flat(
     return (a * v8.to(acc_dtype)[..., None, :]).sum(dim=-1)
 
 
+def block_product_bits_flat(
+    a_bits: torch.Tensor, b_bits: torch.Tensor, b_transposed: bool
+) -> torch.Tensor:
+    """Structural product of occupancy bits: C(i,k) = OR_j A(i,j) & B(j,k)
+    (the reference's bmp_calculator, ref: src/bmSparse_SPGEMM.cu:787-810).
+    Inputs/outputs are (n, 64) int32 in {0,1}; b_bits in storage layout."""
+    a = a_bits.reshape(a_bits.shape[:-1] + (8, 8))        # [i, j]
+    b = b_bits.reshape(b_bits.shape[:-1] + (8, 8))
+    if b_transposed:
+        b = b.transpose(-1, -2)                           # stored [k, j]
+    c = (a[..., :, :, None] & b[..., None, :, :]).amax(dim=-2)   # [i, k]
+    return c.reshape(a_bits.shape).to(torch.int32)
+
+
 def storage_to_rowmajor(flat: torch.Tensor, transposed: bool) -> torch.Tensor:
     """Reorder (n, 64) slots from storage layout to row-major."""
     if not transposed:
         return flat
-    perm = torch.from_numpy(TRANSPOSE_PERM).to(flat.device)
-    return flat.index_select(-1, perm)
+    # the permutation taking transposed-storage slots (rel_j*8+rel_i) to
+    # row-major slots (rel_i*8+rel_j), an involution; made on the device,
+    # since a copy from the host would synchronise its stream
+    slot = torch.arange(64, device=flat.device)
+    return flat.index_select(-1, (slot % 8) * 8 + slot // 8)

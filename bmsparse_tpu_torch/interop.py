@@ -1,7 +1,7 @@
 """Containers and plans from numpy arrays.
 
-These build the port's BmSparse and Prepared from the arrays of another
-implementation's container or plan (for instance the JAX package's, pulled
+These build the port's BmSparse, Prepared and SpGEMM product plan from the
+arrays of another implementation's container or plan (for instance the JAX package's, pulled
 to the host with np.asarray), so that both implementations can be fed the
 same matrix and the same plan. Bitmap words are numpy uint32; bfloat16
 arrays (numpy extension dtype named "bfloat16") are taken bit for bit.
@@ -75,3 +75,59 @@ def prepared_from_numpy(m: BmSparse, arrays: Mapping[str, Any],
             v, (tuple, list)) else int(v)
     return Prepared(m=m.to(device), plan_dtype=str(arrays["plan_dtype"]),
                     **fields)
+
+
+def _words(a, device) -> torch.Tensor:
+    """uint32 words, or the same bits in int32 -> int64 32-bit patterns."""
+    return bm.words_to_tensor(np.asarray(a).view(np.uint32), device)
+
+
+def _int32s(x, device):
+    """An int32 array, or nested tuples of them (entries may be None)."""
+    if x is None:
+        return None
+    if isinstance(x, (tuple, list)):
+        return tuple(_int32s(t, device) for t in x)
+    return tensor_from_numpy(np.asarray(x, np.int32), device)
+
+
+def product_plan_from_numpy(a: BmSparse, b: BmSparse,
+                            arrays: Mapping[str, Any], device=None):
+    """An SpGEMM product plan (ops.spgemm._ProductPlan) for A @ B from a
+    plan's fields, keyed by the _ProductPlan slot names: arrays, tuples
+    of arrays (tas, tbs, pws, win_starts, sig_st; entries may be None)
+    and statics (groups, pwin, win, nnz_pad, num_c_nnz, ...). Missing
+    fields stay unset; a_flat / b_flat are the operands' dense tiles.
+    Bitmap words — c_hi, c_lo, the first two sig_st columns and
+    keys_tbl's columns 2-3 — may come as uint32 or as int32 views."""
+    from .ops.spgemm import _ProductPlan
+
+    device = a.device if device is None else torch.device(device)
+    p = _ProductPlan()
+    p.a, p.b = a.to(device), b.to(device)
+    p.a_flat = p.a.decompress_blocks_flat()
+    p.b_flat = p.b.decompress_blocks_flat()
+    for name in _ProductPlan.__slots__:
+        if name not in arrays:
+            continue
+        x = arrays[name]
+        if name in ("c_hi", "c_lo"):
+            v = _words(x, device)
+        elif name == "sig_st":
+            v = (_words(x[0], device), _words(x[1], device),
+                 tensor_from_numpy(np.asarray(x[2], np.int64), device))
+        elif name == "keys_tbl":
+            k = np.asarray(x).astype(np.int64)
+            k[:, 2:4] = np.asarray(x)[:, 2:4].view(np.uint32)
+            v = torch.from_numpy(k).to(device)
+        elif name in ("tas", "tbs", "pws", "win_starts"):
+            v = _int32s(x, device)
+        elif name in ("groups", "pwin", "win"):
+            v = [None if g is None else tuple(int(i) for i in g) for g in x]
+            v = v if name == "groups" else tuple(v)
+        elif isinstance(x, (str, int, np.integer)):
+            v = x if isinstance(x, str) else int(x)
+        else:
+            v = tensor_from_numpy(np.asarray(x), device)
+        setattr(p, name, v)
+    return p

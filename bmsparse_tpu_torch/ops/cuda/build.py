@@ -100,6 +100,12 @@ def load() -> ctypes.CDLL:
     lib.bmsp_sell_window.argtypes = [p, i32, p, p, p, i64, i64, i64, i64,
                                      p, p]
     lib.bmsp_sell_window.restype = i32
+    lib.bmsp_numeric_sell.argtypes = [p, p, i32, i64, i64, p, p, i64, i64,
+                                      p, p]
+    lib.bmsp_numeric_sell.restype = i32
+    lib.bmsp_numeric_window.argtypes = [p, p, i32, i64, i64, p, p, p, p,
+                                        i64, i64, i64, p, p]
+    lib.bmsp_numeric_window.restype = i32
     lib.bmsp_error_string.argtypes = [i32]
     lib.bmsp_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -110,6 +110,9 @@ class Prepared:
 
     m: BmSparse
     plan_dtype: str = "float32"
+    # (nb_pad, 64) row-major dense slots in the plan dtype, made on first
+    # SpGEMM use (the dense_flat property) and kept
+    dense_flat_: torch.Tensor | None = None
 
     # --- DIA tier (None disables) ---
     # dia[d, q, l] is the diagonal-d entry of scalar row q*128 + l.
@@ -149,12 +152,23 @@ class Prepared:
                 return tuple(mv(t) for t in x)
             return x.to(device)
 
-        return dataclasses.replace(self, m=self.m.to(device), **{
+        return dataclasses.replace(self, m=self.m.to(device),
+                                   dense_flat_=None, **{
             f: mv(getattr(self, f))
             for f in ("dia", "sell_dense", "sell_bcol", "sell_ws",
                       "sell_rel", "out_gather", "ovf_dense", "ovf_bcol",
                       "ovf_gather")
         })
+
+    @property
+    def dense_flat(self) -> torch.Tensor:
+        """(nb_pad, 64) dense row-major slots in the plan dtype, computed on
+        first SpGEMM use and kept."""
+        df = object.__getattribute__(self, "dense_flat_")
+        if df is None:
+            df = self.m.decompress_blocks_flat(getattr(torch, self.plan_dtype))
+            object.__setattr__(self, "dense_flat_", df)
+        return df
 
     def __getattr__(self, name):
         return getattr(object.__getattribute__(self, "m"), name)
@@ -545,6 +559,7 @@ def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:
         rel_l.append(p.sell_rel[g] if ok else None)
     return dataclasses.replace(
         p,
+        dense_flat_=None,
         plan_dtype=_dtype_name(dtype),
         dia=None if p.dia is None else p.dia.to(dtype),
         sell_dense=tuple(d.to(dtype) for d in p.sell_dense),
@@ -552,6 +567,10 @@ def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:
         sell_ws=tuple(ws_l),
         sell_rel=tuple(rel_l),
     )
+
+
+def as_matrix(x) -> BmSparse:
+    return x.m if isinstance(x, Prepared) else x
 
 
 # Per-container plan memoization for spmv(m, v, impl="cuda") on a raw

@@ -1,7 +1,7 @@
 """Sparse-structure generators — counterpart of
 ``bmsparse_tpu/utils/testmats.py`` (copied as numpy, so both packages see
-the same matrices from the same seed), plus the stencil generator of
-``bench.py`` (`make_stencil`).
+the same matrices from the same seed), plus the generators of ``bench.py``
+(`make_stencil`, `make_banded`, `make_blockdense`).
 
   * fem2d       — P1 finite-element stiffness pattern on a structured
                   triangulated grid: 7-point 2-D stencil (offsets 0, ±1,
@@ -12,6 +12,10 @@ the same matrices from the same seed), plus the stencil generator of
                   the overflow mini-SELL.
   * make_stencil — dense band, every diagonal fully populated (the PDE
                   stencil family); DIA tier only.
+  * make_banded  — random band of `band` entries per row (bench.py's
+                  band256k / band2M SpGEMM cases).
+  * make_blockdense — fully dense 8x8 blocks scattered uniformly
+                  (bench.py's blockdense64k).
 
 All return int32/int32/float32 COO, sorted row-major, no duplicates.
 """
@@ -90,3 +94,32 @@ def make_stencil(n: int, half_width: int, seed: int = 0):
     rows, cols = rows[keep], cols[keep]
     vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
     return rows.astype(np.int32), cols.astype(np.int32), vals
+
+
+def make_banded(n: int, band: int, seed: int = 0):
+    """Random band: `band` draws per row at offsets in [-band/2, band/2],
+    duplicates merged — bench.py's generator. Returns (rows, cols, vals)."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), band)
+    offs = rng.integers(-band // 2, band // 2 + 1, size=rows.shape[0])
+    cols = np.clip(rows + offs, 0, n - 1)
+    key = np.unique(rows * n + cols)
+    rows, cols = np.divmod(key, n)
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return rows.astype(np.int32), cols.astype(np.int32), vals
+
+
+def make_blockdense(n: int, num_blocks: int, seed: int = 0):
+    """Fully dense 8x8 blocks scattered uniformly — the format's ideal
+    case, as bench.py makes it. Returns (rows, cols, vals)."""
+    rng = np.random.default_rng(seed)
+    nb_side = n // 8
+    flat = rng.choice(nb_side * nb_side, size=num_blocks, replace=False)
+    br, bc = np.divmod(flat, nb_side)
+    ri, rj = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    rows = (br[:, None] * 8 + ri.reshape(-1)[None, :]).reshape(-1)
+    cols = (bc[:, None] * 8 + rj.reshape(-1)[None, :]).reshape(-1)
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    order = np.lexsort((cols, rows))
+    return (rows[order].astype(np.int32), cols[order].astype(np.int32),
+            vals[order])

@@ -1,17 +1,57 @@
-"""Timing — counterpart of ``bmsparse_tpu/utils/timing.py::time_op``.
+"""Timing — counterpart of ``bmsparse_tpu/utils/timing.py``.
 
-On a CUDA device the time of each run is taken between two CUDA events
-recorded on the current stream, so it is device time, not the time to
-enqueue; on the CPU it is the host clock around the call.
+`PhaseTimer` keeps the reference's per-phase labels (T_1..T_9, "Toda F";
+ref: src/bmSparse_SPGEMM.cu:835-853,951-957,1209-1220) with host clocks;
+on a CUDA device each phase ends with a synchronisation of that device,
+where the JAX package blocks on a result.
+
+`time_op`: on a CUDA device the time of each run is taken between two
+CUDA events recorded on the current stream, so it is device time, not
+the time to enqueue; on the CPU it is the host clock around the call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 from typing import Any
 
 import torch
+
+
+class PhaseTimer:
+    """Collects labelled phase durations in microseconds. `device`: where
+    the timed work runs; a CUDA device is synchronised at the end of each
+    phase while the timer is enabled (a disabled timer costs nothing)."""
+
+    def __init__(self, enabled: bool = True, device=None):
+        self.enabled = enabled
+        self.device = torch.device(device or "cpu")
+        self.phases: dict[str, float] = {}
+        self._t0 = time.perf_counter()
+
+    @contextlib.contextmanager
+    def phase(self, label: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.enabled and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = (time.perf_counter() - t0) * 1e6
+            self.phases[label] = self.phases.get(label, 0.0) + dt
+
+    def total_us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    def report(self, stream=None) -> None:
+        if not self.enabled:
+            return
+        emit = print if stream is None else (lambda s: stream.write(s + "\n"))
+        for label, us in self.phases.items():
+            emit(f"{label}: {us:.0f}")
+        emit(f"Toda F: {self.total_us():.0f}")
 
 
 def time_op(fn, *args, warmup: int = 1, iters: int = 10,

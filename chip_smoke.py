@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bmsparse_tpu_torch) on one NVIDIA
 card: builds the kernels from csrc/, holds each against its plain torch
-version at the shapes the main path gives it, drives the main path
-(MatrixMarket / COO -> BmSparse -> prepare -> spmv) on Ragusa16,
-stencil2M and road1M, checks the results against scipy in float64 and
-against the plain path on the card, shows from the launch counters that
-the main path ran through both kernels, and times kernel and plain paths
-with CUDA events.
+version at the shapes the main paths give it, drives the two main paths
+through the public API —
+  SpMV   (MatrixMarket / COO -> BmSparse -> prepare -> spmv) on Ragusa16,
+         stencil2M and road1M;
+  SpGEMM (COO -> BmSparse A and transposed B -> spgemm(A, B) and
+         prepare_product(A, B)()) A*A on Ragusa16, blockdense64k, band2M
+         and fem1M —
+checks the results against scipy in float64 and against the plain path on
+the card, shows from the launch counters that each path ran through its
+kernels, and times kernel and plain paths with CUDA events.
 
     python3 chip_smoke.py
 
@@ -77,6 +81,31 @@ def device_profile(fn, torch, iters: int = 10):
     return busy / iters / 1e3, span / iters / 1e3
 
 
+def device_top(fn, torch, iters: int = 5, top: int = 8) -> str:
+    """The `top` device operations of fn by self device time per call,
+    from a torch.profiler trace of `iters` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            rows.append((t / iters / 1e3, e.key))
+    rows.sort(reverse=True)
+    if not rows:
+        return "not measured (no profiler activity)"
+    return "; ".join(f"{name[:60]} {ms!r} ms" for ms, name in rows[:top])
+
+
 def profile_text(prof) -> str:
     if prof is None:
         return "device time not measured (no profiler activity)"
@@ -139,6 +168,65 @@ def phase1_kernels(torch, dev):
             errs["sell_window"] = max(errs["sell_window"], err)
             print(f"phase1 sell_window cw={cw} cap={cap} kg={kg} {dt}: "
                   f"max_abs_err={err!r}")
+    return errs
+
+
+def phase1_spgemm_kernels(torch, dev):
+    """The SpGEMM kernels against their plain versions, at the slot-table
+    shapes of blockdense64k (numeric_sell) and band2M (numeric_window)."""
+    from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import (
+        numeric_sell, numeric_sell_plain,
+    )
+    from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
+        _SENT_REL, W_MAX, numeric_window, numeric_window_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    errs = {"numeric_sell": 0.0, "numeric_window": 0.0}
+
+    def slots(nb, shape, sentinel):
+        t = torch.randint(0, nb, shape, generator=g, device=dev,
+                          dtype=torch.int32)
+        t[torch.rand(shape, generator=g, device=dev) < 0.2] = sentinel
+        return t
+
+    nb = 40_960                  # blockdense64k's blocks per operand
+    a = torch.randn((nb, 64), generator=g, device=dev)
+    b = torch.randn((nb, 64), generator=g, device=dev)
+    for k, ch in ((1, 1600), (2, 16), (3, 64), (16, 64)):
+        ta, tb = slots(nb, (ch, k, 128), nb), slots(nb, (ch, k, 128), nb)
+        for dt in (torch.float32, torch.bfloat16):
+            args = (a.to(dt), b.to(dt), ta, tb)
+            got = numeric_sell(*args)
+            want = numeric_sell_plain(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **TOL)
+            err = max_abs(got, want)
+            errs["numeric_sell"] = max(errs["numeric_sell"], err)
+            print(f"phase1 numeric_sell nb={nb} ch={ch} K={k} {dt}: "
+                  f"max_abs_err={err!r}")
+    nb = 786_432                 # band2M's blocks per operand
+    nb_pad = max(-(-(nb + 1) // 128) * 128, W_MAX)
+    a = torch.randn((nb, 64), generator=g, device=dev)
+    b = torch.randn((nb, 64), generator=g, device=dev)
+    for k, w, t_real, ntiles in ((3, 4096, 8, 256), (2, 2048, 4, 512),
+                                 (1, 256, 1, 512)):
+        ws = [torch.randint(0, (nb_pad - w) // 128 + 1, (ntiles,),
+                            generator=g, device=dev, dtype=torch.int32) * 128
+              for _ in range(2)]
+        for x in ws:
+            x[-1] = nb_pad - w   # a window that runs past the table's end
+        ra, rb = (slots(w, (ntiles, k, 8, 128), _SENT_REL) for _ in range(2))
+        for dt in (torch.float32, torch.bfloat16):
+            args = (a.to(dt), b.to(dt), ra, rb, ws[0], ws[1], k, t_real)
+            got = numeric_window(*args)
+            want = numeric_window_plain(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **TOL)
+            err = max_abs(got, want)
+            errs["numeric_window"] = max(errs["numeric_window"], err)
+            print(f"phase1 numeric_window nb={nb} ntiles={ntiles} K={k} "
+                  f"W={w} t_real={t_real} {dt}: max_abs_err={err!r}")
     return errs
 
 
@@ -218,6 +306,215 @@ def phase2_main_path(torch):
                   "road1M: expected windowed groups and overflow slots")
         runs[name] = (m, p, v)
     return launches, runs
+
+
+def spgemm_matrices():
+    """(name, loader) pairs for A*A; each loader makes A and the
+    transposed B on the card through the port's entry points, as bench.py
+    builds them."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.utils.testmats import (
+        fem2d, make_banded, make_blockdense,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def pair(r, c, v, shape):
+        return (bt.coo_to_bmsparse(r, c, v, shape, device="cuda"),
+                bt.coo_to_bmsparse(r, c, v, shape, transposed=True,
+                                   device="cuda"))
+
+    def ragusa():
+        return pair(*bt.read_matrix_market(
+            os.path.join(here, "data", "real", "A_matrix.mtx")))
+
+    def square(gen, n):
+        return lambda: pair(*gen(), (n, n))
+
+    return [
+        ("Ragusa16", ragusa),
+        ("blockdense64k", square(
+            lambda: make_blockdense(65_536, 40_960, seed=3), 65_536)),
+        ("band2M", square(lambda: make_banded(2_097_152, 16, seed=4),
+                          2_097_152)),
+        ("fem1M", lambda: pair(*fem2d(1024, seed=7))),
+    ]
+
+
+def count_syncs(fn, torch) -> list:
+    """The places (file:line) of the host syncs torch reports while fn
+    runs (CUDA sync debug mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in seen
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def same_c(c, cp):
+    """C equals the plain path's C: structure exactly, values to TOL."""
+    import torch
+
+    check(c.nb == cp.nb and c.nnz == cp.nnz, "C block count or nnz differs")
+    for f in ("brow", "bcol", "bmp_hi", "bmp_lo", "offsets"):
+        check(torch.equal(getattr(c, f), getattr(cp, f)), f"C.{f} differs")
+    torch.testing.assert_close(c.values, cp.values, **TOL)
+
+
+def phase2_spgemm(torch):
+    """SpGEMM A*A through the public API, with launch counts."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import numeric_sell
+    from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
+        numeric_window,
+    )
+
+    launches = {"numeric_sell": 0, "numeric_window": 0}
+    runs = {}
+    for name, load in spgemm_matrices():
+        t0 = time.perf_counter()
+        a, b = load()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        numeric_sell.launches = numeric_window.launches = 0
+        c = bt.spgemm(a, b)
+        pp = bt.prepare_product(a, b)
+        c2 = pp()
+        torch.cuda.synchronize()
+        counts = {"numeric_sell": numeric_sell.launches,
+                  "numeric_window": numeric_window.launches}
+        t2 = time.perf_counter()
+        for k in launches:
+            launches[k] += counts[k]
+        syncs = (count_syncs(lambda: bt.spgemm(a, b), torch),
+                 count_syncs(pp, torch))
+        print(f"phase2 spgemm {name}: host syncs of one-shot spgemm() "
+              f"{syncs[0]}, of the cached pp() {syncs[1]}")
+        check(len(syncs[0]) == 2 and not syncs[1],
+              f"{name}: spgemm() must sync twice (task total, plan packet) "
+              f"and pp() never, got {syncs}")
+        p = pp.plan
+        routes = [("numeric_window" if w is not None else "numeric_sell",
+                   kg, c1 - c0) for (kg, c0, c1), w in zip(p.groups, p.pwin)]
+        print(f"phase2 spgemm {name}: n={a.num_rows} nnz(A)={a.nnz} "
+              f"blocks(A)={a.nb} tasks={p.num_tasks} "
+              f"pruned={p.num_tasks - p.num_alive} C blocks={c.nb} "
+              f"nnz(C)={c.nnz} load={t1 - t0:.3f}s "
+              f"spgemm+prepare_product+call={t2 - t1:.3f}s "
+              f"launches={counts}")
+        print(f"phase2 spgemm {name}: K-groups (kernel, K, chunks) {routes}; "
+              f"tile windows {p.pwin}")
+        check(c.values.is_cuda and c.values.dtype == torch.float32
+              and c.values.shape[0] >= c.nnz
+              and bool(torch.isfinite(c.values).all()), f"{name}: output")
+        same_c(c, c2)
+        cp = bt.spgemm(a, b, impl="plain")
+        same_c(c, cp)
+        print(f"phase2 spgemm {name}: structure equal to the plain path's, "
+              f"max_abs_err vs plain on the card = "
+              f"{max_abs(c.values, cp.values)!r}")
+        a_sp = a.to_scipy().tocsr()
+        ref = (a_sp @ b.to_scipy().tocsr()).tocsr()
+        mre = bt.mean_relative_error(c, ref)
+        diff = abs(c.to_scipy().tocsr() - ref)
+        ref_max = float(abs(ref).max()) if ref.nnz else 0.0
+        rel = (float(diff.max()) if diff.nnz else 0.0) / max(ref_max, 1e-30)
+        print(f"phase2 spgemm {name}: vs scipy float64: mean relative error "
+              f"{mre!r}, max|C-ref|/max|ref| {rel!r}, nnz(C)={c.nnz} "
+              f"nnz(ref)={ref.nnz}")
+        check(mre < 1e-5, f"{name}: mean relative error {mre}")
+        check(c.nnz >= ref.nnz, f"{name}: nnz(C) below scipy's")
+        check(rel <= 1e-4, f"{name}: max error {rel} vs scipy")
+        n_win = sum(w is not None for w in p.pwin)
+        check(counts["numeric_window"] == 2 * n_win
+              and counts["numeric_sell"] == 2 * (len(p.groups) - n_win),
+              f"{name}: a K-group did not launch its kernel")
+        if name == "blockdense64k":
+            check(counts["numeric_sell"] > 0 and n_win == 0,
+                  "blockdense64k: expected numeric_sell and no tile window")
+        if name == "band2M":
+            check(counts["numeric_window"] > 0,
+                  "band2M: numeric_window not launched")
+        runs[name] = (a, b, c, pp)
+        del cp, c2, ref, diff, a_sp
+    return launches, runs
+
+
+def phase3_spgemm_times(torch, runs, card):
+    """Per matrix: one-shot spgemm, the cached numeric call on kernels and
+    on plain torch, its roofline share and device profile; then each
+    kernel alone against its plain version."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import (
+        numeric_sell, numeric_sell_plain,
+    )
+    from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
+        numeric_window, numeric_window_plain,
+    )
+    from bmsparse_tpu_torch.utils import roofline as rl
+
+    bw = rl.device_hbm_gbps(torch.cuda.get_device_name(0))
+    for name in ("blockdense64k", "band2M", "fem1M"):
+        a, b, c, pp = runs[name]
+        pp_plain = bt.prepare_product(a, b, impl="plain")
+        t_e2e = median_ms(lambda: bt.spgemm(a, b), torch)
+        t_k = median_ms(pp, torch)
+        t_p = median_ms(pp_plain, torch)
+        p = pp.plan
+        line = (f"phase3 spgemm {name}: one-shot spgemm {t_e2e!r} ms; cached "
+                f"pp() kernels {t_k!r} ms ({c.nnz / t_k / 1e6!r} Gnnz(C)/s), "
+                f"plain {t_p!r} ms ({c.nnz / t_p / 1e6!r} Gnnz(C)/s)")
+        if bw is not None:
+            min_b = rl.spgemm_min_bytes(a.nnz, a.nb, b.nnz, b.nb, p.num_tasks,
+                                        c.nnz, c.nb)
+            t_min = min_b / (bw * 1e9) * 1e3
+            line += (f"; spgemm_min_bytes {min_b} = {t_min!r} ms at {bw} "
+                     f"GB/s, pp() kernels at {t_min / t_k!r} of it")
+        print(line + f" [{card}]")
+        for what, fn in (("kernels", pp), ("plain", pp_plain)):
+            prof = device_profile(fn, torch)
+            print(f"phase3 spgemm {name} pp() {what}: {profile_text(prof)} "
+                  f"(torch.profiler) [{card}]")
+        print(f"phase3 spgemm {name} one-shot spgemm phases (µs, host "
+              f"clock, each phase ends with a CUDA sync):")
+        bt.spgemm(a, b, verbose=True)
+        print(f"phase3 spgemm {name} pp() kernels, device time per call by "
+              f"operation: {device_top(pp, torch)} [{card}]")
+        del pp_plain
+
+    kernels = []
+    for kname, mname, fn, plain in (
+            ("numeric_sell", "blockdense64k", numeric_sell, numeric_sell_plain),
+            ("numeric_window", "band2M", numeric_window,
+             numeric_window_plain)):
+        p = runs[mname][3].plan
+        win = kname == "numeric_window"
+        calls = [
+            (p.tas[g], p.tbs[g]) + ((*p.pws[g], kg, p.pwin[g][2]) if win
+                                    else ())
+            for g, (kg, _, _) in enumerate(p.groups)
+            if (p.pwin[g] is not None) == win]
+
+        def run_groups(f, calls=calls, p=p):
+            return [f(p.a_flat, p.b_flat, *args) for args in calls]
+
+        t_k = median_ms(lambda: run_groups(fn), torch)
+        t_p = median_ms(lambda: run_groups(plain), torch)
+        print(f"phase3 {kname} {mname} ({len(calls)} K-groups): kernel "
+              f"{t_k!r} ms, plain {t_p!r} ms [{card}]")
+        for what, f in (("kernel", fn), ("plain", plain)):
+            prof = device_profile(lambda: run_groups(f), torch)
+            print(f"phase3 {kname} {mname} {what}: {profile_text(prof)} "
+                  f"(torch.profiler) [{card}]")
+        kernels.append((kname, t_k, t_p))
+    return kernels
 
 
 def phase3_times(torch, runs, card):
@@ -338,17 +635,28 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     errs = phase1_kernels(torch, dev)
+    errs.update(phase1_spgemm_kernels(torch, dev))
     launches, runs = phase2_main_path(torch)
-    print(f"phase2 launches on the main path: {launches}")
-    check(launches["dia_spmv"] > 0 and launches["sell_window"] > 0,
-          "a kernel of the path was not launched")
+    print(f"phase2 launches on the SpMV path: {launches}")
+    spgemm_launches, spgemm_runs = phase2_spgemm(torch)
+    print(f"phase2 launches on the SpGEMM path: {spgemm_launches}")
+    launches.update(spgemm_launches)
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the paths was not launched: {launches}")
     times = phase3_times(torch, runs, card)
+    del runs
+    times += phase3_spgemm_times(torch, spgemm_runs, card)
 
     replaces = {
         "dia_spmv": ("bmsparse_tpu_torch/csrc/dia_spmv.cu",
                      "bmsparse_tpu/ops/pallas/spmv_kernel.py:62"),
         "sell_window": ("bmsparse_tpu_torch/csrc/sell_window.cu",
                         "bmsparse_tpu/ops/pallas/sell_kernel.py:159"),
+        "numeric_sell": ("bmsparse_tpu_torch/csrc/spgemm_sell.cu",
+                         "bmsparse_tpu/ops/pallas/spgemm_kernel.py:106"),
+        "numeric_window": ("bmsparse_tpu_torch/csrc/spgemm_window.cu",
+                           "bmsparse_tpu/ops/pallas/"
+                           "spgemm_window_kernel.py:234"),
     }
     out = {"kernels": [
         {"name": name, "route": "cuda", "source": replaces[name][0],
