@@ -19,6 +19,10 @@ Kernels (csrc/, built with nvcc at first use on a CUDA device):
     numeric_sell (ops/cuda/spgemm_kernel.py) — SpGEMM task-SELL products
     numeric_window (ops/cuda/spgemm_window_kernel.py) — SpGEMM products
                  of K-groups with tile windows
+    window_product, rowwise_gather (ops/cuda/shuffle_kernel.py) — the
+                 stream tier's v gather and routing stages
+    segment_compress_class (ops/cuda/compress_kernel.py) — the SpGEMM
+                 segment compress (spgemm_compress="mxu")
 """
 
 from .config import BLOCK_HEIGHT, BLOCK_SIZE, BLOCK_WIDTH, get_config, set_config

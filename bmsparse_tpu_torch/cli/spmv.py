@@ -63,7 +63,7 @@ def main(argv=None) -> int:
     a_path = os.path.join(args.folder, args.a_name)
 
     t0 = time.perf_counter()
-    a = mmread_bmsparse(a_path, dtype=dtype)
+    a = mmread_bmsparse(a_path, dtype=dtype, device=args.device)
     print(f"Parsing data: {(time.perf_counter() - t0) * 1e6:.0f}")
 
     t0 = time.perf_counter()

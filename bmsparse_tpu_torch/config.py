@@ -45,10 +45,11 @@ class Config:
     # plan equals the JAX package's under "on"), "off" = never. Read at
     # plan time, so a cached plan stays self-consistent.
     spgemm_winkernel: str = os.environ.get("BMSP_SPGEMM_WINKERNEL", "auto")
-    # SpGEMM compress stage. Only the row scatter-add is ported, so every
-    # value runs it except "fold" and "mxu", the JAX package's
-    # alternatives, which raise until they are ported; then this field
-    # becomes a real choice.
+    # SpGEMM compress stage, read at plan time (the JAX package's names):
+    # "auto" and "scatter" = the row scatter-add; "fold" = the gather-fold
+    # where the plan's contributor runs allow it, else the scatter; "mxu" =
+    # the segment compress (csrc/segment_compress.cu on CUDA tensors; the
+    # name is the JAX package's, whose kernel uses the TPU's MXU).
     spgemm_compress: str = os.environ.get("BMSP_SPGEMM_COMPRESS", "auto")
     # Per-phase timing of spgemm() (the reference's VERBOSE flag).
     verbose: bool = _env_bool("BMSP_VERBOSE", False)

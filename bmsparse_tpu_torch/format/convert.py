@@ -85,12 +85,15 @@ def coo_to_bmsparse(
     shape: tuple[int, int],
     transposed: bool = False,
     backend: str = "host",
-    device="cpu",
+    device="cuda",
 ) -> BmSparse:
     """Convert COO triplets (numpy arrays, 0-based) to BmSparse.
 
     Duplicate coordinates are summed (scipy/cusp COO assembly semantics).
     Float values keep their dtype; other values become float32.
+
+    device: where the container's tensors live; the card by default, and
+    the CPU only when asked for (device="cpu").
 
     backend: "host" (vectorized numpy) is the only converter of the port
     so far; the JAX package's on-device converter is a ROADMAP item.

@@ -17,6 +17,7 @@ import torch
 from .format import bitmap as bm
 from .format.bmsparse import BmSparse
 from .ops.plan import Prepared
+from .ops.route import StreamPlan
 
 _PLAN_TENSORS = ("dia", "out_gather", "ovf_gather")
 _PLAN_GROUPS = ("sell_dense", "sell_bcol", "sell_ws", "sell_rel",
@@ -38,9 +39,10 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor | None:
 
 def bmsparse_from_numpy(arrays: Mapping[str, Any], num_rows: int,
                         num_cols: int, nnz: int, transposed: bool,
-                        device="cpu") -> BmSparse:
-    """A BmSparse from its arrays: brow, bcol, bmp_hi, bmp_lo (uint32
-    words), offsets, values, nb."""
+                        device="cuda") -> BmSparse:
+    """A BmSparse on `device` (the card unless the caller asks for the
+    CPU) from its arrays: brow, bcol, bmp_hi, bmp_lo (uint32 words),
+    offsets, values, nb."""
     return BmSparse(
         brow=tensor_from_numpy(np.asarray(arrays["brow"], np.int32), device),
         bcol=tensor_from_numpy(np.asarray(arrays["bcol"], np.int32), device),
@@ -61,8 +63,9 @@ def prepared_from_numpy(m: BmSparse, arrays: Mapping[str, Any],
     Prepared field names: plan_dtype (a dtype name), dia, out_gather,
     ovf_gather (arrays or None), the per-group tuples sell_dense,
     sell_bcol, sell_ws, sell_rel, ovf_dense, ovf_bcol (entries may be
-    None), and the statics dia_offsets, sell_ks, sell_rows, ovf_ks,
-    ovf_rows."""
+    None), the statics dia_offsets, sell_ks, sell_rows, ovf_ks, ovf_rows,
+    and optionally `stream`: a mapping of the StreamPlan fields (arrays
+    and statics) or None."""
     device = m.device if device is None else device
     fields: dict = {f: tensor_from_numpy(arrays.get(f), device)
                     for f in _PLAN_TENSORS}
@@ -73,6 +76,12 @@ def prepared_from_numpy(m: BmSparse, arrays: Mapping[str, Any],
         v = arrays.get(f, ())
         fields[f] = tuple(int(x) for x in v) if isinstance(
             v, (tuple, list)) else int(v)
+    st = arrays.get("stream")
+    if st is not None:
+        fields["stream"] = StreamPlan(
+            **{f: tensor_from_numpy(st[f], device)
+               for f in StreamPlan.TENSORS},
+            **{f: int(st[f]) for f in StreamPlan.STATICS})
     return Prepared(m=m.to(device), plan_dtype=str(arrays["plan_dtype"]),
                     **fields)
 
@@ -104,6 +113,7 @@ def product_plan_from_numpy(a: BmSparse, b: BmSparse,
 
     device = a.device if device is None else torch.device(device)
     p = _ProductPlan()
+    p.compress_mode, p.g_tbl = "scatter", None
     p.a, p.b = a.to(device), b.to(device)
     p.a_flat = p.a.decompress_blocks_flat()
     p.b_flat = p.b.decompress_blocks_flat()

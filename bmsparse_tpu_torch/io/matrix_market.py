@@ -38,11 +38,12 @@ def mmread_bmsparse(
     path: str,
     transposed: bool = False,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
 ):
-    """File -> BmSparse on `device` in one call (the reference ctor's full
-    pipeline). Values are read as float64 when `dtype` is float64 and as
-    float32 otherwise, then cast to `dtype`."""
+    """File -> BmSparse on `device` (the card unless the caller asks for
+    the CPU) in one call (the reference ctor's full pipeline). Values are
+    read as float64 when `dtype` is float64 and as float32 otherwise, then
+    cast to `dtype`."""
     from ..format.convert import coo_to_bmsparse
 
     np_dtype = np.float64 if dtype == torch.float64 else np.float32

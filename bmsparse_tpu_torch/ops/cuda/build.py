@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``bmsparse_tpu_torch/csrc/`` are compiled with nvcc for
-Hopper (``sm_90a``) into one shared library with a plain C interface, at
-first use, and loaded with ctypes. The library lands in
+Hopper (``sm_90a``), one nvcc process per source, all started together,
+and linked into one shared library with a plain C interface, at first
+use, and loaded with ctypes. The library lands in
 ``build/bmsparse_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused. A missing nvcc or a failed build raises with the compiler's
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "bmsparse_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -66,17 +67,38 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources() if s.suffix == ".cu")]
+    objs = BUILD_DIR / f"{so.stem}.{os.getpid()}.objs"
+    objs.mkdir(exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    jobs = []
+    for src in (s for s in sources() if s.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(objs / f"{src.stem}.o"),
+               str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log = []
+    failed = []
+    for cmd, proc in jobs:
+        out, err = proc.communicate()
+        log.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *(str(o) for o in sorted(objs.glob("*.o")))]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"nvcc link failed ({res.returncode}): "
+                          f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    shutil.rmtree(objs, ignore_errors=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+        raise RuntimeError("\n".join(failed))
     build_seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    so.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, so)
     return so
 
@@ -106,6 +128,12 @@ def load() -> ctypes.CDLL:
     lib.bmsp_numeric_window.argtypes = [p, p, i32, i64, i64, p, p, p, p,
                                         i64, i64, i64, p, p]
     lib.bmsp_numeric_window.restype = i32
+    lib.bmsp_window_product.argtypes = [p, p, p, p, i64, i64, i64, i64, p, p]
+    lib.bmsp_window_product.restype = i32
+    lib.bmsp_rowwise_gather.argtypes = [p, p, i64, i64, i64, p, p]
+    lib.bmsp_rowwise_gather.restype = i32
+    lib.bmsp_segment_compress.argtypes = [p, p, i64, i64, p, p]
+    lib.bmsp_segment_compress.restype = i32
     lib.bmsp_error_string.argtypes = [i32]
     lib.bmsp_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -20,8 +20,13 @@ Tier 2 — SELL (sliced-ELL over slots of 8 rows x cw columns, C = 128
 Overflow — a mini-SELL of each row's far outlier slots, so that a few
   long links do not keep their chunk out of the windowed kernel.
 
-The JAX package's stream tier, its multi-chip options (`force_layout`,
-`col_shift`) and its plan cache on disk are not ported yet (ROADMAP).
+Stream — scattered structures (web graphs, uniform random matrices): the
+  rows with at most K_CAP entries go to the stream tier (ops/route.py,
+  csrc/window_product.cu and csrc/rowwise_gather.cu) when its cost model
+  says it clearly beats the block tiers, or always under stream="force".
+
+The JAX package's multi-chip options (`force_layout`, `col_shift`) and its
+plan cache on disk are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from ..config import BLOCK_HEIGHT
 from ..format.bmsparse import BmSparse, cdiv
+from . import route
 from .cuda import sell_kernel as _sk
 
 SELL_C = 128                 # lanes per chunk
@@ -43,6 +49,12 @@ _K_BUCKETS = tuple(
     sorted({1, 2, 3} | {m for b in range(2, 16) for m in ((1 << b), 3 << (b - 1))})
 )
 MAX_SELL_GROUPS = 12     # cap on adaptive per-matrix K classes
+STREAM_MODES = ("auto", "force", "off")
+# Per-slot cost of the block tiers' v gather beyond its bytes: seconds per
+# index of a torch gather of 8-scalar v segments, 2**22 indices
+# (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+# records the run). The bytes are priced at route.BW. Read at call time.
+G_NS = 5.8e-11
 
 
 def _bucket_k(k: int) -> int:
@@ -143,6 +155,9 @@ class Prepared:
     ovf_gather: torch.Tensor | None = None   # (block_rows,) int32
     ovf_rows: int = 0
 
+    # --- Stream tier: the routing plan of the scattered rows (float32) ---
+    stream: route.StreamPlan | None = None
+
     def to(self, device) -> "Prepared":
         """The same plan with every tensor on `device`."""
         def mv(x):
@@ -152,13 +167,13 @@ class Prepared:
                 return tuple(mv(t) for t in x)
             return x.to(device)
 
-        return dataclasses.replace(self, m=self.m.to(device),
-                                   dense_flat_=None, **{
-            f: mv(getattr(self, f))
-            for f in ("dia", "sell_dense", "sell_bcol", "sell_ws",
-                      "sell_rel", "out_gather", "ovf_dense", "ovf_bcol",
-                      "ovf_gather")
-        })
+        return dataclasses.replace(
+            self, m=self.m.to(device), dense_flat_=None,
+            stream=None if self.stream is None else self.stream.to(device),
+            **{f: mv(getattr(self, f))
+               for f in ("dia", "sell_dense", "sell_bcol", "sell_ws",
+                         "sell_rel", "out_gather", "ovf_dense", "ovf_bcol",
+                         "ovf_gather")})
 
     @property
     def dense_flat(self) -> torch.Tensor:
@@ -390,7 +405,7 @@ def _choose_diagonals(
 
 
 def prepare(m: BmSparse, dtype: torch.dtype | None = None,
-            sell_unit: int | None = None, stream: str = "off",
+            sell_unit: int | None = None, stream: str = "auto",
             device=None) -> Prepared:
     """Build the tiered execution plan (host numpy, once per matrix).
 
@@ -403,17 +418,19 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     64-scalar column window). None = automatic (64 when the merge factor
     reaches 2x).
 
-    stream: only "off". The JAX package's stream tier ("auto", "force")
-    is priced with TPU constants and its kernels are not ported.
+    stream: "auto" routes scattered structures to the stream tier when
+    its cost model (route.stream_cost_estimate, the H100's constants)
+    says it beats the block tiers by 2x; "force" routes every row with at
+    most K_CAP entries there; "off" disables the tier. Float32 plans with
+    automatic slot granularity only, as in the JAX package.
 
     device: where the finished plan lives; defaults to the matrix's.
     """
     if isinstance(m, Prepared):
         return m
-    if stream != "off":
-        raise NotImplementedError(
-            f"stream={stream!r}: the stream tier is not ported yet "
-            "(ROADMAP queue 1, item 10: stream tier, with kernels 5-6)")
+    if stream not in STREAM_MODES:
+        raise ValueError(f"stream must be one of {STREAM_MODES}, got "
+                         f"{stream!r}")
     if dtype is None:
         dtype = m.dtype if m.dtype.is_floating_point else torch.float32
     if not dtype.is_floating_point:
@@ -447,12 +464,6 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
             dia_offsets = tuple(int(o) for o in offs)
             rows, cols, vals = rows[~on_dia], cols[~on_dia], vals[~on_dia]
 
-    # ---- Tier 2: SELL-C-128 over the remaining blocks -------------------
-    # Slot granularity: when a block row's columns cluster, merging its
-    # blocks into 64-scalar column-window super-slots (cw = 64) divides
-    # the per-slot v reads by the merge factor; scattered structures keep
-    # cw = 8, where the 8x denser coefficient slabs would cost more than
-    # the reads they save.
     sell_dense: list = []
     sell_bcol: list = []
     sell_ks: list = []
@@ -466,13 +477,35 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     ovf_gather = None
     ovf_rows = 0
     single = sell_unit is None
-    cw = 8
-    if sell_unit is not None:
-        cw = int(sell_unit)
-    elif len(rows):
+    nblk = nwin = 0
+    if single and len(rows):
         br0 = rows >> 3
         nblk = len(np.unique(br0 * np.int64(nbc) + (cols >> 3)))
         nwin = len(np.unique(br0 * np.int64(cdiv(nbc, 8)) + (cols >> 6)))
+
+    # ---- Stream tier: scattered rows with at most K_CAP entries --------
+    # Decided before the block sort, while the scalar arrays are aligned.
+    # The block tiers pay a slab per slot plus one v-segment gather index;
+    # the stream tier pays its tables' bytes (route.stream_cost_estimate).
+    stream_plan = None
+    if (single and dtype == torch.float32 and stream != "off"
+            and len(rows) and (len(rows) >= 4096 or stream == "force")):
+        stream_plan, heavy = _route_stream(
+            rows, cols, vals, m, nblk, nwin, itemsize, np_dtype,
+            force=stream == "force")
+        if stream_plan is not None:
+            rows, cols, vals = rows[heavy], cols[heavy], vals[heavy]
+
+    # ---- Tier 2: SELL-C-128 over the remaining blocks -------------------
+    # Slot granularity: when a block row's columns cluster, merging its
+    # blocks into 64-scalar column-window super-slots (cw = 64) divides
+    # the per-slot v reads by the merge factor; scattered structures keep
+    # cw = 8, where the 8x denser coefficient slabs would cost more than
+    # the reads they save (so do the few deep rows a stream plan leaves).
+    cw = 8
+    if sell_unit is not None:
+        cw = int(sell_unit)
+    elif len(rows) and stream_plan is None:
         if nblk >= 2 * nwin and nwin * 512 * itemsize <= (2 << 30):
             cw = 64
 
@@ -535,7 +568,40 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
         out_gather=out_gather, sell_rows=sell_rows,
         ovf_dense=tuple(ovf_dense), ovf_bcol=tuple(ovf_bcol),
         ovf_ks=tuple(ovf_ks), ovf_gather=ovf_gather, ovf_rows=ovf_rows,
+        stream=stream_plan,
     ).to(device)
+
+
+def _route_stream(rows, cols, vals, m: BmSparse, nblk: int, nwin: int,
+                  itemsize: int, np_dtype, force: bool):
+    """The stream-tier decision of prepare() (the JAX package's, with the
+    H100's constants). Returns (plan, heavy): the stream plan of the rows
+    with at most K_CAP entries and the mask of the scalars left to the
+    block tiers, or (None, None) when the block tiers stay cheaper."""
+    bw = route.BW
+    est_block = min(nblk * (8 * 8 * itemsize / bw + G_NS),
+                    nwin * (64 * 8 * itemsize / bw + G_NS))
+    rcount = np.bincount(rows, minlength=m.num_rows)
+    # the grid's depth is the deepest row under the cap: heavier rows stay
+    # on the block tiers and are not billed here
+    under = rcount[rcount <= route.K_CAP]
+    k_est = int(under.max()) if len(under) else 1
+    est_stream = route.stream_cost_estimate(len(rows), k_est, m.num_rows)
+    # 2x margin: slack escalation can double the tables, and the block
+    # estimate ignores the windowed kernel
+    if not (force or 2 * est_stream < est_block):
+        return None, None
+    heavy = (rcount > route.K_CAP)[rows]
+    args = (rows[~heavy], cols[~heavy], vals[~heavy], m.num_rows,
+            m.num_cols, np_dtype)
+    plan = route.build_stream_plan(*args)
+    # stage-2 slack escalation by estimate: rebuild at s2 = 8 only when
+    # the residue it would remove costs more than the larger tables
+    added = (route.stream_cost_estimate(len(rows), k_est, m.num_rows, s2=8)
+             - route.stream_cost_estimate(len(rows), k_est, m.num_rows))
+    if int(plan.res_rows.shape[0]) * route.RES_NS > added:
+        plan = route.build_stream_plan(*args, s2=8)
+    return plan, heavy
 
 
 def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:

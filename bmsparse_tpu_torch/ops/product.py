@@ -9,7 +9,9 @@ container fields. Calling the product then runs only
 
     operand gathers + block products + K-sums (the two kernels) -> compress
 
-on the device, with no host work and no host sync. Values may change
+on the device, with no host work and no host sync. The compress is the
+one the plan chose (`compress_mode`: "scatter", "fold" or "mxu", from
+config spgemm_compress at prepare time). Values may change
 between calls while the structure (blocks and bitmaps) stays: pass the
 updated operands to __call__.
 """
@@ -41,6 +43,7 @@ class PreparedProduct:
         self.shape = (plan.a.num_rows, plan.b.num_cols)
         self.num_c_blocks = plan.num_c_blocks
         self.num_c_nnz = plan.num_c_nnz
+        self.compress_mode = plan.compress_mode
         self._fp_a = _structure_fingerprint(plan.a)
         self._fp_b = _structure_fingerprint(plan.b)
 

@@ -19,9 +19,16 @@ plan array equals the JAX package's at every position, padding included:
                              plan (the JAX package's numeric_window_pallas),
       csrc/spgemm_sell.cu    (numeric_sell) for every other group (its
                              numeric_sell_pallas, gather fused in).
-  compress: bit-order packing + one row scatter-add (_pack_rows,
-      _compress_rows), plain torch on every device, as the JAX package
-      computes it outside any kernel.
+  compress: bit-order packing (_pack_rows), then one of three ways to
+      place the packed rows in C's value array, chosen at plan time by
+      config spgemm_compress (the JAX package's names):
+        "auto"/"scatter" one row scatter-add (_compress_rows), plain torch;
+        "fold"           a gather of each output row's contributors
+                         through a plan table (_compress_fold), plain
+                         torch, where the plan's run lengths allow it;
+        "mxu"            the segment compress per sigma class
+                         (_compress_mxu) on csrc/segment_compress.cu, the
+                         counterpart of the JAX package's MXU kernel.
 
 The JAX package's XLA slab-window gather (`_numeric_group_windowed`) is a
 TPU gather-rate workaround; its groups' slot tables hold absolute block
@@ -48,11 +55,13 @@ from ..config import bucket_size, get_config, round_up
 from ..format import bitmap as bm
 from ..format.bmsparse import BmSparse
 from ..utils.timing import PhaseTimer
+from .cuda import compress_kernel as _ck
 from .cuda import spgemm_kernel as _sk
 from .cuda import spgemm_window_kernel as _wk
 from .segsort import sort_by_key
 
 IMPLS = ("auto", "cuda", "plain")
+COMPRESS_MODES = ("auto", "scatter", "fold", "mxu")
 _I32_MAX = 2**31 - 1
 _NOT_PORTED = "ROADMAP queue 1, item {}"
 
@@ -505,12 +514,104 @@ def _compress_rows(c_rows, hi, lo, off, num_c_nnz: int):
     return _fold_out(out128, t_rows, num_c_nnz)
 
 
+def _compress_fold(c_rows, hi, lo, off, g_tbl, num_c_nnz: int):
+    """Gather-fold compress (the JAX package's _compress_fold): g_tbl
+    (t_rows, J) lists, per output row, the packed rows whose values start
+    in it (sentinels past the table read the appended zero row); each
+    output row is the sum of its contributors, then the 128 -> 64 lane
+    fold."""
+    w, _ = _pack_rows(c_rows, hi, lo, off)
+    w_ext = torch.cat([w, w.new_zeros((1, 128))])
+    t_rows = -(-num_c_nnz // 64) if num_c_nnz else 1
+    j_n = g_tbl.shape[1]
+    idx = g_tbl.long().clamp(0, w.shape[0]).reshape(-1)
+    out128 = w_ext[idx].reshape(-1, j_n, 128).sum(dim=1)
+    return _fold_out(out128, t_rows, num_c_nnz)
+
+
+def _mxu_class_inputs(c_rows, hi, lo, off, groups):
+    """Per sigma class (K-group), the segment compress's operands: the
+    packed rows (w_g, (R_g, 128)) and their output rows (b_g, (R_g,)
+    int32, non-decreasing: within a class the sigma order keeps the
+    natural block order). The stacked layout pads each group to its
+    bucketed chunk count; padding rows have empty bitmaps and get b_row
+    2**30, which drops out."""
+    w, _ = _pack_rows(c_rows, hi, lo, off)
+    b_row = torch.where((hi | lo) != 0, off // 64, 2**30).int()
+    base = 0
+    for _, c0, c1 in groups:
+        rows_g = bucket_size(c1 - c0, minimum=1) * 128
+        yield w[base:base + rows_g], b_row[base:base + rows_g]
+        base += rows_g
+
+
+def _compress_mxu(c_rows, hi, lo, off, groups, num_c_nnz: int,
+                  kernels: bool):
+    """Segment compress (the JAX package's _compress_mxu): one
+    segment_compress_class per sigma class, the classes' outputs summed
+    (their positions are disjoint), then the 128 -> 64 lane fold."""
+    seg = (_ck.segment_compress_class if kernels
+           else _ck.segment_compress_class_plain)
+    t_rows = -(-num_c_nnz // 64) if num_c_nnz else 1
+    out128 = None
+    for w_g, b_g in _mxu_class_inputs(c_rows, hi, lo, off, groups):
+        part = seg(w_g, b_g, t_rows)
+        out128 = part if out128 is None else out128.add_(part)
+    if out128 is None:
+        out128 = c_rows.new_zeros((t_rows, 128))
+    return _fold_out(out128, t_rows, num_c_nnz)
+
+
+def _compress_fold_plan(nat_off, nat_of_sig, chunk_base, nbc: int,
+                        j_max: int, t_rows_pad: int):
+    """The (t_rows_pad, j_max) contributor table of _compress_fold (the
+    JAX package's _compress_fold_plan, its sorts as stable torch sorts).
+    In natural block order the offsets are a prefix sum, so the blocks
+    whose values start in output row q form one run; g[q, j] is the
+    stacked numeric row of the run's j-th block (natural -> sigma by
+    inverting nat_of_sig, sigma -> stacked row through chunk_base).
+    Absent contributors hold 2**30."""
+    nbc_pad = nat_off.shape[0]
+    dev = nat_off.device
+    big = 2**30
+    n_iota = torch.arange(nbc_pad, device=dev)
+    validb = n_iota < nbc
+    sig_of = torch.sort(nat_of_sig, stable=True).indices
+    srow = chunk_base[(sig_of // 128).clamp(0, chunk_base.shape[0] - 1)] \
+        + sig_of % 128
+    b_row = torch.where(validb, nat_off.long() // 64, big)
+    newr = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                      b_row[1:] != b_row[:-1]])
+    keyq = torch.where(validb & newr, b_row, big)
+    firstn_all = torch.sort(keyq, stable=True).indices
+    if nbc_pad >= t_rows_pad:
+        first_q = firstn_all[:t_rows_pad]
+    else:
+        first_q = torch.cat([firstn_all, firstn_all.new_full(
+            (t_rows_pad - nbc_pad,), nbc_pad)])
+    j_iota = torch.arange(j_max, device=dev)[None, :]
+    nat_id = torch.clamp(first_q[:, None] + j_iota, max=nbc_pad)
+    tail = torch.full((1,), big, dtype=torch.int64, device=dev)
+    br = torch.cat([b_row, tail])[nat_id]
+    q_iota = torch.arange(t_rows_pad, device=dev)[:, None]
+    srow_ext = torch.cat([srow.long(), tail])
+    return torch.where(br == q_iota, srow_ext[nat_id], big).int()
+
+
 def _numeric_stage(a_flat, b_flat, tas, tbs, sig_hi, sig_lo, sig_off, pws,
                    groups: tuple, kernels: bool, nnz_pad: int,
-                   pwin: tuple = ()):
-    """The whole numeric phase (products, K-sums, compress) on plan data."""
+                   pwin: tuple = (), compress: str = "scatter",
+                   g_tbl=None):
+    """The whole numeric phase (products, K-sums, compress) on plan data;
+    `compress` is the plan's compress mode."""
     c_rows = _numeric_sell_parts(a_flat, b_flat, tas, tbs, list(groups),
                                  kernels, pwin, pws)
+    if compress == "fold":
+        return _compress_fold(c_rows, sig_hi, sig_lo, sig_off, g_tbl,
+                              nnz_pad)
+    if compress == "mxu":
+        return _compress_mxu(c_rows, sig_hi, sig_lo, sig_off, groups,
+                             nnz_pad, kernels)
     return _compress_rows(c_rows, sig_hi, sig_lo, sig_off, nnz_pad)
 
 
@@ -526,7 +627,7 @@ class _ProductPlan:
         "a", "b", "a_flat", "b_flat", "keys_tbl",
         "starts_sig", "cnt_sig", "ends_sig", "groups",
         "tas", "tbs", "sig_st", "sig_sigma",
-        "win", "win_starts", "jmax",
+        "win", "win_starts", "jmax", "g_tbl", "compress_mode",
         "pwin", "pws", "nba_pad", "nbb_pad",
         "num_tasks", "num_alive", "num_c_blocks", "num_c_nnz",
         "nbc_pad", "nb_pad_c", "nnz_pad", "a_idx", "b_idx", "c_seg",
@@ -564,6 +665,10 @@ def _plan_fused(a, b, offs, b_row_start, total: int,
 _WIN_TABLE_MIN_ROWS = 1 << 17
 _WIN_MAX_ROWS = 1 << 18
 _SELL_SLAB = 64
+# the JAX package's gather-fold eligibility: short contributor runs only,
+# and a packed-row table of at most this many rows
+_FOLD_MAX_J = 16
+_FOLD_MAX_ROWS = 196608
 
 
 def _slab_chunks(ch: int, k: int) -> int:
@@ -698,10 +803,9 @@ def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
     """T1-T9 with exactly two host syncs — the task total and the plan
     packet — plus host-side static planning on the packet."""
     cfg = get_config()
-    if cfg.spgemm_compress in ("fold", "mxu"):
-        raise NotImplementedError(
-            f"spgemm_compress={cfg.spgemm_compress!r} is not ported: "
-            + _NOT_PORTED.format(10) + " (compress alternatives)")
+    if cfg.spgemm_compress not in COMPRESS_MODES:
+        raise ValueError(f"spgemm_compress must be one of {COMPRESS_MODES}, "
+                         f"got {cfg.spgemm_compress!r}")
     p = _ProductPlan()
     p.a, p.b = a, b
     dev = a.device
@@ -718,7 +822,7 @@ def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
 
     with timer.phase("T_3"):
         (packet, keys_tbl, c_seg, a_idx, b_idx,
-         starts_sig, cnt_sig, ends_sig, nat_cols, _,
+         starts_sig, cnt_sig, ends_sig, nat_cols, nat_of_sig,
          sig_cols) = _plan_fused(a, b, offs, b_row_start, p.num_tasks,
                                  t_pad, sentinel, p.nbc_pad)
     with timer.phase("T_6"):
@@ -755,25 +859,51 @@ def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
                 and p.a_flat.dtype != torch.float64
                 and p.b_flat.dtype != torch.float64),
             itemsize=p.a_flat.dtype.itemsize, device=dev)
+        # compress plan: the gather-fold where contributor runs are short
+        # and the packed-row table small, else the row scatter-add; the
+        # segment compress when asked for ("mxu")
+        r_rows = sum(bucket_size(c1 - c0, minimum=1) * 128
+                     for _, c0, c1 in p.groups)
+        t_rows_pad = max(-(-p.nnz_pad // 64), 1)
+        use_fold = bool(
+            cfg.spgemm_compress == "fold"
+            and p.groups and 0 < p.jmax <= _FOLD_MAX_J
+            and t_rows_pad * p.jmax <= max(4 * r_rows, 1)
+            and r_rows <= _FOLD_MAX_ROWS)
+        if cfg.spgemm_compress == "mxu" and p.groups:
+            p.compress_mode = "mxu"
+        else:
+            p.compress_mode = "fold" if use_fold else "scatter"
+        fold = None
+        if use_fold:
+            chunk_base = np.full((nchunk,), r_rows, np.int64)
+            base = 0
+            for _, c0, c1 in p.groups:
+                chunk_base[c0:c1] = base + np.arange(c1 - c0) * 128
+                base += bucket_size(c1 - c0, minimum=1) * 128
+            fold = (nat_of_sig, _to_device(chunk_base, dev), p.jmax,
+                    t_rows_pad)
         p.nb_pad_c = min(
             round_up(max(bucket_size(max(p.num_c_blocks, 1)), 128), 128),
             p.nbc_pad)
-        (p.tas, p.tbs, p.sig_st, p.cbrow, p.cbcol, p.c_hi, p.c_lo,
+        (p.tas, p.tbs, p.sig_st, p.g_tbl, p.cbrow, p.cbcol, p.c_hi, p.c_lo,
          p.c_off) = _plan_stage2(
             keys_tbl, starts_sig, cnt_sig, sig_cols, nat_cols,
             p.num_c_blocks, p.num_c_nnz, p.pws, tuple(p.groups),
             sent_a=nb_a, sent_b=nb_b, nb_pad_c=p.nb_pad_c,
-            block_rows_a=a.block_rows, pallas_win=p.pwin)
+            block_rows_a=a.block_rows, pallas_win=p.pwin, fold=fold)
     return p
 
 
 def _plan_stage2(keys_tbl, starts_sig, cnt_sig, sig_cols, nat_cols,
                  nbc: int, nnzc: int, pws, groups: tuple, sent_a: int,
                  sent_b: int, nb_pad_c: int, block_rows_a: int,
-                 pallas_win: tuple = ()):
+                 pallas_win: tuple = (), fold=None):
     """Everything the plan derives after the packet: the per-group slot
-    tables, the stacked sigma compress columns and the masked
-    natural-order container fields (scatter compress only).
+    tables, the stacked sigma compress columns, the gather-fold's
+    contributor table g_tbl (fold = (nat_of_sig, chunk_base, j_max,
+    t_rows_pad); without it a (1, 1) zero table, as in the JAX package)
+    and the masked natural-order container fields.
 
     Groups with a tile-window plan get their slot tables window-relative
     in the kernel's (ntiles, K, 8, 128) layout; sentinels become
@@ -825,6 +955,12 @@ def _plan_stage2(keys_tbl, starts_sig, cnt_sig, sig_cols, nat_cols,
     sig_st_t = tuple(
         torch.cat(c) if c else torch.zeros(1, dtype=torch.int64, device=dev)
         for c in sig_st)
+    if fold is not None:
+        nat_of_sig, chunk_base, j_max, t_rows_pad = fold
+        g_tbl = _compress_fold_plan(nat_cols[4], nat_of_sig, chunk_base, nbc,
+                                    j_max, t_rows_pad)
+    else:
+        g_tbl = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     valid_b = torch.arange(nb_pad_c, device=dev) < nbc
     cbrow = torch.where(valid_b, nat_cols[0][:nb_pad_c], block_rows_a).int()
     cbcol = torch.where(valid_b, nat_cols[1][:nb_pad_c], 0).int()
@@ -832,7 +968,7 @@ def _plan_stage2(keys_tbl, starts_sig, cnt_sig, sig_cols, nat_cols,
     c_lo = torch.where(valid_b, nat_cols[3][:nb_pad_c], 0)
     c_off = torch.where(valid_b, nat_cols[4][:nb_pad_c],
                         max(nnzc - 1, 0)).int()
-    return (tuple(tas), tuple(tbs), sig_st_t,
+    return (tuple(tas), tuple(tbs), sig_st_t, g_tbl,
             cbrow, cbcol, c_hi, c_lo, c_off)
 
 
@@ -881,7 +1017,8 @@ def _numeric_from_plan(p: _ProductPlan, kernels: bool, a_flat=None,
     if p.groups and p.num_c_blocks > 0:
         return _numeric_stage(
             a_flat, b_flat, p.tas, p.tbs, *p.sig_st, p.pws,
-            tuple(p.groups), kernels, p.nnz_pad, pwin=p.pwin)
+            tuple(p.groups), kernels, p.nnz_pad, pwin=p.pwin,
+            compress=p.compress_mode, g_tbl=p.g_tbl)
     return torch.zeros(
         p.nnz_pad, dtype=torch.promote_types(a_flat.dtype, torch.float32),
         device=a_flat.device)

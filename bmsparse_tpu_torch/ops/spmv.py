@@ -8,6 +8,9 @@ Counterpart of ``bmsparse_tpu/ops/spmv.py``. A Prepared plan
                      window plan; a per-slot torch gather for the others
   overflow tier   -> per-slot torch gather
   row placement   -> torch gather through out_gather / ovf_gather
+  stream tier     -> window_product + rowwise_gather (csrc/window_product.cu,
+                     csrc/rowwise_gather.cu), transposes and the residue's
+                     index_add_ in torch (ops/route.py::stream_apply)
 
 The groups without a window plan and the overflow mini-SELL are computed
 outside any kernel in the JAX package too, so their gather is the same
@@ -33,6 +36,7 @@ from ..config import BLOCK_HEIGHT, BLOCK_WIDTH, get_config
 from ..format.bmsparse import BmSparse, cdiv
 from .cuda.sell_kernel import sell_window, sell_window_plain
 from .cuda.spmv_kernel import dia_spmv, dia_spmv_plain
+from .route import stream_apply
 
 IMPLS = ("auto", "cuda", "plain")
 
@@ -106,6 +110,9 @@ def _spmv_prepared(p, v: torch.Tensor, impl: str) -> torch.Tensor:
         u += sell_apply(
             p.ovf_dense, p.ovf_bcol, p.ovf_gather, vpad, nbc,
         ).reshape(npad)
+    if p.stream is not None:
+        u_s = stream_apply(p.stream, vpad, kernels=kernels)
+        u[: u_s.shape[0]] += u_s
     return u[: m.num_rows].to(v.dtype)
 
 

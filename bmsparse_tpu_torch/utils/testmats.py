@@ -16,6 +16,9 @@ the same matrices from the same seed), plus the generators of ``bench.py``
                   band256k / band2M SpGEMM cases).
   * make_blockdense — fully dense 8x8 blocks scattered uniformly
                   (bench.py's blockdense64k).
+  * webgraph    — power-law link graph with scattered hub columns (bench.py's
+                  web256k); the stream tier's structure.
+  * make_random — uniform random pattern (bench.py's rand64k).
 
 All return int32/int32/float32 COO, sorted row-major, no duplicates.
 """
@@ -81,6 +84,37 @@ def roadnet(n: int, seed: int = 0):
     rows, cols = _dedup(rows[keep], cols[keep], n)
     vals = rng.random(rows.shape[0]).astype(np.float32) + 0.1
     return rows, cols, vals.astype(np.float32), (n, n)
+
+
+def webgraph(n: int, avg_deg: int = 8, seed: int = 0):
+    """Power-law link graph: out-edges from every page, targets drawn
+    Zipf-like so a few hub columns are extremely dense."""
+    rng = np.random.default_rng(seed)
+    m = n * avg_deg
+    src = rng.integers(0, n, m)
+    # Zipf-ish targets via the inverse CDF of a truncated power law
+    u = rng.random(m)
+    dst = np.minimum((u ** 3.0) * n, n - 1).astype(np.int64)
+    # permute hub ids so that the dense columns are scattered
+    perm = rng.permutation(n)
+    dst = perm[dst]
+    keep = src != dst
+    rows, cols = _dedup(src[keep], dst[keep], n)
+    vals = rng.random(rows.shape[0]).astype(np.float32) + 0.01
+    return rows, cols, vals.astype(np.float32), (n, n)
+
+
+def make_random(n: int, density: float, seed: int = 0):
+    """Uniform random pattern of n * n * density entries, as bench.py
+    makes it. Returns (rows, cols, vals)."""
+    rng = np.random.default_rng(seed)
+    nnz = int(n * n * density)
+    flat = rng.choice(n * n, size=nnz, replace=False)
+    rows, cols = np.divmod(flat, n)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    order = np.lexsort((cols, rows))
+    return (rows[order].astype(np.int32), cols[order].astype(np.int32),
+            vals[order])
 
 
 def make_stencil(n: int, half_width: int, seed: int = 0):

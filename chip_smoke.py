@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (bmsparse_tpu_torch) on one NVIDIA
 card: builds the kernels from csrc/, holds each against its plain torch
-version at the shapes the main paths give it, drives the two main paths
-through the public API —
-  SpMV   (MatrixMarket / COO -> BmSparse -> prepare -> spmv) on Ragusa16,
-         stencil2M and road1M;
+version at the shapes the main paths give it, drives the paths through
+the public API —
+  SpMV, block tiers (MatrixMarket / COO -> BmSparse -> prepare(stream=
+         "off") -> spmv) on Ragusa16, stencil2M and road1M;
+  SpMV, stream tier (prepare(stream="force") -> spmv) on web256k and
+         rand64k, and the tier prepare(stream="auto") picks for them and
+         for road1M;
   SpGEMM (COO -> BmSparse A and transposed B -> spgemm(A, B) and
          prepare_product(A, B)()) A*A on Ragusa16, blockdense64k, band2M
-         and fem1M —
+         and fem1M;
+  SpGEMM compress alternatives: the segment compress (spgemm_compress=
+         "mxu") on band2M and fem1M, the gather-fold ("fold") on band256k —
 checks the results against scipy in float64 and against the plain path on
 the card, shows from the launch counters that each path ran through its
-kernels, and times kernel and plain paths with CUDA events.
+kernels, times kernel and plain paths with CUDA events beside each
+kernel's bound and, where one exists, a single PyTorch call computing the
+same function, and measures the stream tier's cost-model constants.
 
     python3 chip_smoke.py
 
@@ -31,8 +38,14 @@ import time
 import numpy as np
 
 TOL = dict(rtol=1e-5, atol=1e-5)   # kernel vs plain: only the sum order differs
+EXACT = dict(rtol=0, atol=0)       # one product or one copy per output
+COMPRESS_REL = 1e-6                # compress modes vs scatter, max|dC| / max|C|
 ORACLE_REL = 1e-4                  # vs scipy float64, max|u - ref| / max|ref|
 WARMUP, ITERS = 3, 20
+# H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): device memory
+# and float32 outside the tensor cores, for the kernels' bounds
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -106,6 +119,13 @@ def device_top(fn, torch, iters: int = 5, top: int = 8) -> str:
     return "; ".join(f"{name[:60]} {ms!r} ms" for ms, name in rows[:top])
 
 
+def busy_s(fn, torch) -> float:
+    """Device busy seconds per call of fn (torch.profiler); CUDA events
+    where the profiler recorded no device activity."""
+    prof = device_profile(fn, torch)
+    return (prof[0] if prof is not None else median_ms(fn, torch)) / 1e3
+
+
 def profile_text(prof) -> str:
     if prof is None:
         return "device time not measured (no profiler activity)"
@@ -116,6 +136,36 @@ def profile_text(prof) -> str:
 
 def max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def bound(n_bytes: float, flops: float) -> tuple:
+    """The least time the card could take for work that must move
+    `n_bytes` (each input read once, each output written once) and do
+    `flops` float32 operations: (ms, "bytes" or "operations")."""
+    t_b = n_bytes / PEAK_BYTES_PER_S
+    t_f = flops / PEAK_F32_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def distinct(idxs, below: int) -> int:
+    """Distinct entries in [0, below) of the index tensors idxs: the rows
+    the gathers must read."""
+    import torch
+
+    if not idxs:
+        return 0
+    idx = torch.cat([i.reshape(-1) for i in idxs])
+    return int(torch.unique(idx[(idx >= 0) & (idx < below)]).numel())
+
+
+def kernel_row(name, ms, plain_ms, bound_ms_by, library_ms=None) -> dict:
+    return {"name": name, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms_by[0], "bound_by": bound_ms_by[1],
+            "library_ms": library_ms}
 
 
 def phase1_kernels(torch, dev):
@@ -255,7 +305,10 @@ def matrices():
 
 
 def phase2_main_path(torch):
-    """The slice through the public API, with launch counts."""
+    """SpMV on the block tiers through the public API, with launch counts.
+    These matrices exercise the DIA and SELL tiers, so their plans are
+    built with stream="off" (the tier prepare's default "auto" picks is
+    printed in phase 2's stream section)."""
     import bmsparse_tpu_torch as bt
     from bmsparse_tpu_torch.ops.cuda.sell_kernel import sell_window
     from bmsparse_tpu_torch.ops.cuda.spmv_kernel import dia_spmv
@@ -267,7 +320,7 @@ def phase2_main_path(torch):
         t0 = time.perf_counter()
         m = load()
         t1 = time.perf_counter()
-        p = bt.prepare(m)
+        p = bt.prepare(m, stream="off")
         t2 = time.perf_counter()
         # v as bench.py makes it
         v_np = np.random.default_rng(0).standard_normal(
@@ -306,6 +359,134 @@ def phase2_main_path(torch):
                   "road1M: expected windowed groups and overflow slots")
         runs[name] = (m, p, v)
     return launches, runs
+
+
+def stream_matrices():
+    """(name, loader) pairs of the stream-tier cases, as bench.py makes
+    them (bench.py:185,200); each loader makes the matrix on the card."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.utils.testmats import make_random, webgraph
+
+    def web():
+        return bt.coo_to_bmsparse(*webgraph(262_144, avg_deg=8, seed=9),
+                                  device="cuda")
+
+    def rand():
+        n = 65_536
+        return bt.coo_to_bmsparse(*make_random(n, 3e-4, seed=1), (n, n),
+                                  device="cuda")
+
+    return [("web256k", web), ("rand64k", rand)]
+
+
+def stream_kernel_inputs(torch, s, v, seed=99):
+    """The stream kernels' operands at the plan's shapes: window_product
+    on the plan's tables and v's table; rowwise_gather on the plan's
+    stage-2 and stage-3 index tables with x of the stages' shapes."""
+    g = torch.Generator(device=v.device).manual_seed(seed)
+    vtab = torch.zeros(s.vtab_len, device=v.device)
+    k = min(s.vtab_len, v.shape[0])
+    vtab[:k] = v[:k]
+    x2 = torch.randn((128 * s.nsub, 128), generator=g, device=v.device)
+    x3 = torch.randn((16384, s.w3), generator=g, device=v.device)
+    return ((s.vals_grid, s.rel_grid, s.ws, vtab, s.w),
+            [(x2, s.idx2, s.idx2.shape[1]), (x3, s.idx3, s.idx3.shape[1])])
+
+
+def phase2_stream(torch, runs):
+    """SpMV through the stream tier (prepare(stream="force")), with launch
+    counts; then each stream kernel against its plain version at the
+    plan's shapes, and the tier stream="auto" picks."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.ops.cuda.shuffle_kernel import (
+        rowwise_gather, rowwise_gather_plain, window_product,
+        window_product_plain,
+    )
+
+    launches = {"window_product": 0, "rowwise_gather": 0}
+    errs = {"window_product": 0.0, "rowwise_gather": 0.0}
+    out = {}
+    for name, load in stream_matrices():
+        t0 = time.perf_counter()
+        m = load()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p = bt.prepare(m, stream="force")
+        t2 = time.perf_counter()
+        v_np = np.random.default_rng(0).standard_normal(
+            m.num_cols).astype(np.float32)
+        v = torch.from_numpy(v_np).to("cuda")
+        window_product.launches = rowwise_gather.launches = 0
+        u = bt.spmv(p, v)
+        torch.cuda.synchronize()
+        counts = {"window_product": window_product.launches,
+                  "rowwise_gather": rowwise_gather.launches}
+        for k in launches:
+            launches[k] += counts[k]
+        s = p.stream
+        check(s is not None, f"{name}: no stream plan under stream='force'")
+        print(f"phase2 stream {name}: n={m.num_rows} nnz={m.nnz} "
+              f"load={t1 - t0:.3f}s prepare(stream='force')={t2 - t1:.3f}s "
+              f"(host plan build) k={s.k} nsub={s.nsub} nahi={s.nahi} "
+              f"w3={s.w3} s2={s.idx2.shape[1]} "
+              f"residue={s.res_rows.shape[0]} "
+              f"grid rows={s.vals_grid.shape[0]} sell_ks={p.sell_ks} "
+              f"launches={counts}")
+        check(counts["window_product"] == 1 and counts["rowwise_gather"] == 2,
+              f"{name}: the stream kernels were not launched")
+        check(u.is_cuda and u.shape == (m.num_rows,)
+              and bool(torch.isfinite(u).all()), f"{name}: output")
+        ref = m.to_scipy() @ v_np.astype(np.float64)
+        rel = float(np.abs(u.cpu().double().numpy() - ref).max()
+                    / max(np.abs(ref).max(), 1e-30))
+        print(f"phase2 stream {name}: max|u-ref|/max|ref| vs scipy float64 "
+              f"= {rel!r}")
+        check(rel <= ORACLE_REL, f"{name}: error {rel} vs scipy")
+        u_plain = bt.spmv(p, v, impl="plain")
+        torch.testing.assert_close(u, u_plain, **TOL)
+        print(f"phase2 stream {name}: max_abs_err vs plain on the card = "
+              f"{max_abs(u, u_plain)!r}")
+
+        wargs, gcalls = stream_kernel_inputs(torch, s, v)
+        got, want = window_product(*wargs), window_product_plain(*wargs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **EXACT)
+        errs["window_product"] = max(errs["window_product"],
+                                     max_abs(got, want))
+        print(f"phase1 window_product {name} R={s.vals_grid.shape[0]} "
+              f"w={s.w}: max_abs_err={max_abs(got, want)!r}")
+        for stage, args in zip((2, 3), gcalls):
+            got, want = rowwise_gather(*args), rowwise_gather_plain(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **EXACT)
+            errs["rowwise_gather"] = max(errs["rowwise_gather"],
+                                         max_abs(got, want))
+            print(f"phase1 rowwise_gather {name} stage {stage} "
+                  f"x={tuple(args[0].shape)} g={args[2]}: "
+                  f"max_abs_err={max_abs(got, want)!r}")
+        out[name] = (m, p, v)
+
+    # the tier prepare's default picks, under the H100 constants
+    from bmsparse_tpu_torch.ops import plan as plan_mod
+    from bmsparse_tpu_torch.ops import route
+
+    print(f"phase2 stream routing constants in the code: BW={route.BW!r} "
+          f"TILE_STEP={route.TILE_STEP!r} STEP={route.STEP!r} "
+          f"QSEL={route.QSEL!r} RES_NS={route.RES_NS!r} "
+          f"G_NS={plan_mod.G_NS!r}")
+    auto = {}
+    for name, (m, _, v) in (("web256k", out["web256k"]),
+                            ("rand64k", out["rand64k"]),
+                            ("road1M", runs["road1M"])):
+        t0 = time.perf_counter()
+        pa = bt.prepare(m)
+        dt = time.perf_counter() - t0
+        tier = "stream" if pa.stream is not None else "block tiers"
+        print(f"phase2 stream: prepare(stream='auto') picks the {tier} for "
+              f"{name} ({dt:.3f}s; ndiags={len(pa.dia_offsets)} "
+              f"sell_ks={pa.sell_ks})")
+        auto[name] = (m, pa, v)
+    return launches, errs, out, auto
 
 
 def spgemm_matrices():
@@ -447,6 +628,315 @@ def phase2_spgemm(torch):
     return launches, runs
 
 
+def compress_rel(c, c_ref) -> float:
+    """C against a C of the same structure: max|dC| / max|C_ref|."""
+    check(c.nb == c_ref.nb and c.nnz == c_ref.nnz,
+          "C block count or nnz differs")
+    for f in ("brow", "bcol", "bmp_hi", "bmp_lo", "offsets"):
+        check(bool((getattr(c, f) == getattr(c_ref, f)).all()),
+              f"C.{f} differs")
+    x, y = c.values[: c.nnz].double(), c_ref.values[: c_ref.nnz].double()
+    return float((x - y).abs().max() / y.abs().max().clamp(min=1e-30)) \
+        if c.nnz else 0.0
+
+
+def mxu_inputs(pp):
+    """The segment compress's per-class operands of a cached product, as
+    its pp() makes them: (w_g, b_g) per K-group, and t_rows."""
+    from bmsparse_tpu_torch.ops import spgemm as sg
+
+    p = pp.plan
+    c_rows = sg._numeric_sell_parts(p.a_flat, p.b_flat, p.tas, p.tbs,
+                                    list(p.groups), True, p.pwin, p.pws)
+    t_rows = -(-p.nnz_pad // 64)
+    return list(sg._mxu_class_inputs(c_rows, *p.sig_st, p.groups)), t_rows
+
+
+def phase2_compress(torch, runs):
+    """The SpGEMM compress alternatives through the public API, with
+    launch counts: the segment compress ("mxu") on band2M and fem1M, the
+    gather-fold ("fold") on band256k; C against the scatter path's and
+    scipy; then segment_compress_class against its plain version at
+    band2M's pp() shapes."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.config import bucket_size
+    from bmsparse_tpu_torch.ops import spgemm as sg
+    from bmsparse_tpu_torch.ops.cuda.compress_kernel import (
+        segment_compress_class, segment_compress_class_plain,
+    )
+    from bmsparse_tpu_torch.utils.testmats import make_banded
+
+    cases = [(name, "mxu", runs[name][0], runs[name][1], runs[name][2])
+             for name in ("band2M", "fem1M")]
+    n = 262_144                        # bench.py:182
+    r, c, v = make_banded(n, 16, seed=2)
+    a = bt.coo_to_bmsparse(r, c, v, (n, n), device="cuda")
+    b = bt.coo_to_bmsparse(r, c, v, (n, n), transposed=True, device="cuda")
+    cases.append(("band256k", "fold", a, b, bt.spgemm(a, b)))
+    launches = {"segment_compress_class": 0}
+    out = {}
+    for name, mode, a, b, c_sc in cases:
+        bt.set_config(spgemm_compress=mode)
+        try:
+            segment_compress_class.launches = 0
+            c = bt.spgemm(a, b)
+            pp = bt.prepare_product(a, b)
+            c2 = pp()
+            torch.cuda.synchronize()
+            n_seg = segment_compress_class.launches
+        finally:
+            bt.set_config(spgemm_compress="auto")
+        launches["segment_compress_class"] += n_seg
+        p = pp.plan
+        print(f"phase2 compress {name}: spgemm_compress={mode!r} -> plan "
+              f"compress_mode={pp.compress_mode!r}; K-groups "
+              f"{[(kg, c1 - c0) for kg, c0, c1 in p.groups]}; "
+              f"segment_compress_class launches={n_seg}")
+        if mode == "fold" and pp.compress_mode != "fold":
+            r_rows = sum(bucket_size(c1 - c0, minimum=1) * 128
+                         for _, c0, c1 in p.groups)
+            t_rows_pad = max(-(-p.nnz_pad // 64), 1)
+            print(f"phase2 compress {name}: the fold's eligibility rules "
+                  f"refuse it (jmax={p.jmax} <= {sg._FOLD_MAX_J}, "
+                  f"t_rows_pad*jmax={t_rows_pad * p.jmax} <= "
+                  f"4*r_rows={4 * r_rows}, r_rows={r_rows} <= "
+                  f"{sg._FOLD_MAX_ROWS}); the scatter ran")
+        want = 2 * len(p.groups) if mode == "mxu" else 0
+        check(n_seg == want, f"{name}: {n_seg} segment compress launches, "
+              f"expected {want}")
+        rels = (compress_rel(c, c_sc), compress_rel(c2, c_sc))
+        print(f"phase2 compress {name}: structure equal to the scatter "
+              f"path's; max|C-C_scatter|/max|C_scatter| one-shot "
+              f"{rels[0]!r}, cached {rels[1]!r}")
+        check(max(rels) <= COMPRESS_REL, f"{name}: {rels} vs scatter")
+        ref = (a.to_scipy().tocsr() @ b.to_scipy().tocsr()).tocsr()
+        mre = bt.mean_relative_error(c2, ref)
+        diff = abs(c2.to_scipy().tocsr() - ref)
+        ref_max = float(abs(ref).max()) if ref.nnz else 0.0
+        rel = (float(diff.max()) if diff.nnz else 0.0) / max(ref_max, 1e-30)
+        print(f"phase2 compress {name}: vs scipy float64: mean relative "
+              f"error {mre!r}, max|C-ref|/max|ref| {rel!r}")
+        check(mre < 1e-5 and rel <= 1e-4 and c2.nnz >= ref.nnz,
+              f"{name}: {mode} C vs scipy")
+        out[name] = (a, b, pp, c_sc)
+        del c, c2, ref, diff
+
+    classes, t_rows = mxu_inputs(out["band2M"][2])
+    err = 0.0
+    for g, (w_g, b_g) in enumerate(classes):
+        got = segment_compress_class(w_g, b_g, t_rows)
+        want = segment_compress_class_plain(w_g, b_g, t_rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=COMPRESS_REL,
+                                   atol=COMPRESS_REL)
+        err = max(err, max_abs(got, want))
+        print(f"phase1 segment_compress_class band2M class {g}: "
+              f"w={tuple(w_g.shape)} t_pad={t_rows}: "
+              f"max_abs_err={max_abs(got, want)!r}")
+    return launches, {"segment_compress_class": err}, out
+
+
+def phase3_stream_times(torch, stream_runs, auto_runs, card):
+    """The stream kernels at web256k's shapes (event and device time,
+    plain version, bound, one PyTorch call), stream-tier SpMV under
+    "force" and "off", the tier prepare(stream="auto") picked against the
+    block tiers, and the measurements behind the cost model's
+    constants."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.ops import plan as plan_mod
+    from bmsparse_tpu_torch.ops import route
+    from bmsparse_tpu_torch.ops.cuda.shuffle_kernel import (
+        rowwise_gather, rowwise_gather_plain, window_product,
+        window_product_plain,
+    )
+
+    for name, (m, p, v) in stream_runs.items():
+        for mode in ("force", "off"):
+            pm = p if mode == "force" else bt.prepare(m, stream="off")
+            t_k = median_ms(lambda: bt.spmv(pm, v), torch)
+            t_p = median_ms(lambda: bt.spmv(pm, v, impl="plain"), torch)
+            print(f"phase3 spmv {name} stream={mode!r}: kernels {t_k!r} ms "
+                  f"({m.nnz / t_k / 1e6!r} Gnnz/s), plain {t_p!r} ms "
+                  f"({m.nnz / t_p / 1e6!r} Gnnz/s) [{card}]")
+            for impl in ("auto", "plain"):
+                prof = device_profile(lambda: bt.spmv(pm, v, impl=impl),
+                                      torch)
+                print(f"phase3 spmv {name} stream={mode!r} {impl}: "
+                      f"{profile_text(prof)} (torch.profiler) [{card}]")
+            if mode == "force":
+                print(f"phase3 spmv {name} stream='force' kernels, device "
+                      f"time per call by operation: "
+                      f"{device_top(lambda: bt.spmv(pm, v), torch)} [{card}]")
+            del pm
+    for name, (m, pa, v) in auto_runs.items():
+        po = bt.prepare(m, stream="off")
+        t_a = median_ms(lambda: bt.spmv(pa, v), torch)
+        t_o = median_ms(lambda: bt.spmv(po, v), torch)
+        tier = "stream" if pa.stream is not None else "block tiers"
+        print(f"phase3 routing {name}: prepare(stream='auto') picked the "
+              f"{tier}: spmv {t_a!r} ms; block tiers (stream='off') "
+              f"{t_o!r} ms [{card}]")
+        del po
+
+    m, p, v = stream_runs["web256k"]
+    s = p.stream
+    wargs, gcalls = stream_kernel_inputs(torch, s, v)
+    rows = []
+    # window_product: vals, rel, ws read and the products written once;
+    # each distinct window of v once; one multiply per slot
+    t_k = median_ms(lambda: window_product(*wargs), torch)
+    t_p = median_ms(lambda: window_product_plain(*wargs), torch)
+    n_win = int(torch.unique(s.ws).numel())
+    w_bytes = nbytes(s.vals_grid, s.rel_grid, s.ws) \
+        + nbytes(s.vals_grid) + min(n_win * s.w, s.vtab_len) * 4
+    rows.append(kernel_row("window_product", t_k, t_p,
+                           bound(w_bytes, s.vals_grid.numel())))
+    wp_bytes = w_bytes
+    # rowwise_gather: both stages of one SpMV; x and idx read, out written
+    g_bytes = [nbytes(x, i) + i.numel() * 4 for x, i, _ in gcalls]
+    t_k = median_ms(lambda: [rowwise_gather(*a) for a in gcalls], torch)
+    t_p = median_ms(lambda: [rowwise_gather_plain(*a) for a in gcalls],
+                    torch)
+    ext = [(torch.cat([x, x.new_zeros((x.shape[0], 1))], dim=1),
+            torch.where((i >= 0) & (i < x.shape[1]), i, x.shape[1]).long()
+            .reshape(x.shape[0], -1)) for x, i, _ in gcalls]
+    t_lib = median_ms(lambda: [xe.gather(1, ie) for xe, ie in ext], torch)
+    rows.append(kernel_row("rowwise_gather", t_k, t_p,
+                           bound(sum(g_bytes), 0), t_lib))
+    print(f"phase3 stream kernels web256k: window_product kernel "
+          f"{rows[0]['ms']!r} ms, plain {rows[0]['plain_ms']!r} ms, bound "
+          f"{rows[0]['bound_ms']!r} ms; rowwise_gather (stages 2+3, x "
+          f"{[tuple(a[0].shape) for a in gcalls]}) kernel {rows[1]['ms']!r}"
+          f" ms, plain {rows[1]['plain_ms']!r} ms, torch.gather "
+          f"{t_lib!r} ms, bound {rows[1]['bound_ms']!r} ms [{card}]")
+    for kname, fn in (("window_product", lambda: window_product(*wargs)),
+                      ("window_product plain",
+                       lambda: window_product_plain(*wargs)),
+                      ("rowwise_gather",
+                       lambda: [rowwise_gather(*a) for a in gcalls]),
+                      ("rowwise_gather plain",
+                       lambda: [rowwise_gather_plain(*a) for a in gcalls]),
+                      ("rowwise_gather torch.gather",
+                       lambda: [xe.gather(1, ie) for xe, ie in ext])):
+        print(f"phase3 {kname} web256k: "
+              f"{profile_text(device_profile(fn, torch))} (torch.profiler) "
+              f"[{card}]")
+
+    # ---- the cost model's constants, measured ----------------------------
+    x = torch.empty(1 << 28, device="cuda")
+    y = torch.empty_like(x)
+    t = median_ms(lambda: y.copy_(x), torch) / 1e3
+    bw = 2 * nbytes(x) / t
+    del x, y
+    # G_NS: the block tiers' per-slot gather of v segments (cw = 8), as
+    # ops/spmv.sell_apply does it, per index
+    g = torch.Generator(device="cuda").manual_seed(7)
+    ncu = 131_072
+    vt = torch.randn((8, ncu + 1), generator=g, device="cuda")
+    bcol = torch.randint(0, ncu + 1, (1 << 22,), generator=g, device="cuda")
+    g_ns = busy_s(lambda: vt[:, bcol], torch) / bcol.numel()
+    # RES_NS: the residue's gather and index_add_, per element
+    nres = 1 << 20
+    vtab = torch.randn(1 << 20, generator=g, device="cuda")
+    res_cols = torch.randint(0, vtab.numel(), (nres,), generator=g,
+                             device="cuda")
+    res_rows = torch.sort(torch.randint(0, 1 << 20, (nres,), generator=g,
+                                        device="cuda")).values
+    res_vals = torch.randn(nres, generator=g, device="cuda")
+    u = torch.zeros(1 << 20, device="cuda")
+    res_ns = busy_s(lambda: u.index_add_(
+        0, res_rows, res_vals * vtab[res_cols]), torch) / nres
+    # TILE_STEP and STEP: the kernels' device time beyond their bytes at
+    # bw, per tile of window_product and per 32-row step of rowwise_gather
+    ntiles = s.vals_grid.shape[0] // route.TILE_R
+    tile_fit = (busy_s(lambda: window_product(*wargs), torch)
+                - wp_bytes / bw) / ntiles
+    steps = sum(x.shape[0] / 32 for x, _, _ in gcalls)
+    step_fit = (busy_s(lambda: [rowwise_gather(*a) for a in gcalls], torch)
+                - sum(g_bytes) / bw) / steps
+    # QSEL: stage 3 at w3 and at 4 * w3, the same indices: the time beyond
+    # the wider x's bytes, per (8-row block, output row, 128-column) unit
+    x3, i3, g3 = gcalls[1]
+    x3w = torch.randn((x3.shape[0], 4 * x3.shape[1]), generator=g,
+                      device="cuda")
+    t3 = busy_s(lambda: rowwise_gather(x3, i3, g3), torch)
+    t3w = busy_s(lambda: rowwise_gather(x3w, i3, g3), torch)
+    units = (16384 / 8) * g3 * (x3w.shape[1] - x3.shape[1]) / 128
+    qsel_fit = (t3w - t3 - (nbytes(x3w) - nbytes(x3)) / bw) / units
+    print(f"phase3 routing constants measured [{card}]: BW={bw!r} B/s "
+          f"(copy of {2 * (1 << 30)} bytes read+written); "
+          f"G_NS={g_ns!r} s/index (v-segment gather, {bcol.numel()} "
+          f"indices); RES_NS={res_ns!r} s/element (gather + index_add_, "
+          f"{nres} elements); TILE_STEP fit={tile_fit!r} s/tile "
+          f"(window_product, {ntiles} tiles); STEP fit={step_fit!r} s/step "
+          f"(rowwise_gather stages 2+3, {steps} steps); QSEL fit="
+          f"{qsel_fit!r} s/unit (stage 3 at w={x3.shape[1]} {t3!r} s and "
+          f"w={x3w.shape[1]} {t3w!r} s)")
+    print(f"phase3 routing constants in the code: BW={route.BW!r} "
+          f"TILE_STEP={route.TILE_STEP!r} STEP={route.STEP!r} "
+          f"QSEL={route.QSEL!r} RES_NS={route.RES_NS!r} "
+          f"G_NS={plan_mod.G_NS!r}")
+    return rows
+
+
+def phase3_compress_times(torch, compress_runs, spgemm_runs, card):
+    """pp() under "mxu", "fold" and "scatter", and segment_compress_class
+    at band2M's classes (event and device time, plain version, bound,
+    one index_add_ per class)."""
+    from bmsparse_tpu_torch.ops.cuda.compress_kernel import (
+        segment_compress_class, segment_compress_class_plain,
+    )
+
+    for name, (a, b, pp, _) in compress_runs.items():
+        pp_sc = spgemm_runs[name][3] if name in spgemm_runs else None
+        if pp_sc is None:
+            import bmsparse_tpu_torch as bt
+
+            pp_sc = bt.prepare_product(a, b)
+        t_m = median_ms(pp, torch)
+        t_s = median_ms(pp_sc, torch)
+        print(f"phase3 compress {name}: pp() compress_mode="
+              f"{pp.compress_mode!r} {t_m!r} ms, compress_mode="
+              f"{pp_sc.compress_mode!r} {t_s!r} ms [{card}]")
+        prof = device_profile(pp, torch)
+        print(f"phase3 compress {name} pp() {pp.compress_mode}: "
+              f"{profile_text(prof)} (torch.profiler) [{card}]")
+        print(f"phase3 compress {name} pp() {pp.compress_mode}, device time "
+              f"per call by operation: {device_top(pp, torch)} [{card}]")
+
+    classes, t_rows = mxu_inputs(compress_runs["band2M"][2])
+    t_k = median_ms(lambda: [segment_compress_class(w, b_, t_rows)
+                             for w, b_ in classes], torch)
+    t_p = median_ms(lambda: [segment_compress_class_plain(w, b_, t_rows)
+                             for w, b_ in classes], torch)
+    lib = []
+    for w, b_ in classes:
+        bl = b_.long()
+        lib.append((torch.zeros((t_rows + 1, 128), device="cuda"),
+                    torch.where((bl >= 0) & (bl < t_rows), bl, t_rows), w))
+    t_lib = median_ms(lambda: [o.index_add_(0, i, w) for o, i, w in lib],
+                      torch)
+    c_bytes = sum(nbytes(w, b_) + t_rows * 128 * 4 for w, b_ in classes)
+    row = kernel_row("segment_compress_class", t_k, t_p,
+                     bound(c_bytes, sum(w.numel() for w, _ in classes)),
+                     t_lib)
+    print(f"phase3 segment_compress_class band2M ({len(classes)} classes, "
+          f"rows {[w.shape[0] for w, _ in classes]}, t_pad {t_rows}): "
+          f"kernel {t_k!r} ms, plain {t_p!r} ms, index_add_ {t_lib!r} ms, "
+          f"bound {row['bound_ms']!r} ms [{card}]")
+    for kname, fn in (
+            ("kernel", lambda: [segment_compress_class(w, b_, t_rows)
+                                for w, b_ in classes]),
+            ("plain", lambda: [segment_compress_class_plain(w, b_, t_rows)
+                               for w, b_ in classes]),
+            ("index_add_", lambda: [o.index_add_(0, i, w)
+                                    for o, i, w in lib])):
+        print(f"phase3 segment_compress_class band2M {kname}: "
+              f"{profile_text(device_profile(fn, torch))} (torch.profiler) "
+              f"[{card}]")
+    return [row]
+
+
 def phase3_spgemm_times(torch, runs, card):
     """Per matrix: one-shot spgemm, the cached numeric call on kernels and
     on plain torch, its roofline share and device profile; then each
@@ -456,7 +946,7 @@ def phase3_spgemm_times(torch, runs, card):
         numeric_sell, numeric_sell_plain,
     )
     from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
-        numeric_window, numeric_window_plain,
+        _SENT_REL, numeric_window, numeric_window_plain,
     )
     from bmsparse_tpu_torch.utils import roofline as rl
 
@@ -505,6 +995,32 @@ def phase3_spgemm_times(torch, runs, card):
         def run_groups(f, calls=calls, p=p):
             return [f(p.a_flat, p.b_flat, *args) for args in calls]
 
+        # bound: the slot tables, each distinct operand tile once, the C
+        # tiles written once; 1,024 float32 operations per live task
+        nb_a, nb_b = p.a_flat.shape[0], p.b_flat.shape[0]
+        outs = run_groups(fn)
+        k_bytes = nbytes(*outs)
+        flops = 0
+        ia, ib = [], []
+        for args in calls:
+            ta, tb = args[0], args[1]
+            k_bytes += nbytes(*(a for a in args if hasattr(a, "numel")))
+            if win:
+                wsa, wsb = args[2], args[3]
+                ok = (ta != _SENT_REL) & (tb != _SENT_REL)
+                ta = torch.where(ta != _SENT_REL,
+                                 ta + wsa[:, None, None, None], nb_a)
+                tb = torch.where(tb != _SENT_REL,
+                                 tb + wsb[:, None, None, None], nb_b)
+            else:
+                ok = (ta < nb_a) & (tb < nb_b)
+            flops += 1024 * int(ok.sum())
+            ia.append(ta.reshape(-1))
+            ib.append(tb.reshape(-1))
+        row = p.a_flat.shape[1] * p.a_flat.element_size()
+        k_bytes += row * (distinct(ia, nb_a) + distinct(ib, nb_b))
+        del outs
+
         t_k = median_ms(lambda: run_groups(fn), torch)
         t_p = median_ms(lambda: run_groups(plain), torch)
         print(f"phase3 {kname} {mname} ({len(calls)} K-groups): kernel "
@@ -513,7 +1029,7 @@ def phase3_spgemm_times(torch, runs, card):
             prof = device_profile(lambda: run_groups(f), torch)
             print(f"phase3 {kname} {mname} {what}: {profile_text(prof)} "
                   f"(torch.profiler) [{card}]")
-        kernels.append((kname, t_k, t_p))
+        kernels.append(kernel_row(kname, t_k, t_p, bound(k_bytes, flops)))
     return kernels
 
 
@@ -577,7 +1093,9 @@ def phase3_times(torch, runs, card):
             print(f"phase3 dia_spmv stencil2M {dt} {what}: "
                   f"{profile_text(prof)} (torch.profiler) [{card}]")
         if dt == "float32":
-            kernels.append(("dia_spmv", t_k, t_p))
+            out_b = dia.shape[1] * 128 * 4
+            kernels.append(kernel_row("dia_spmv", t_k, t_p, bound(
+                nbytes(dia, vpad) + out_b, 2 * dia.numel())))
 
     m, p, v = runs["road1M"]
     n = m.block_cols * 8
@@ -599,7 +1117,10 @@ def phase3_times(torch, runs, card):
         prof = device_profile(lambda: run_groups(fn), torch)
         print(f"phase3 sell_window road1M {what}: {profile_text(prof)} "
               f"(torch.profiler) [{card}]")
-    kernels.append(("sell_window", t_k, t_p))
+    sell_b = sum(nbytes(d, r, w) + d.shape[1] * 8 * 128 * 4
+                 for d, r, w in groups) + nbytes(vpad)
+    kernels.append(kernel_row("sell_window", t_k, t_p, bound(
+        sell_b, sum(2 * d.numel() for d, _, _ in groups))))
     return kernels
 
 
@@ -637,15 +1158,29 @@ def main() -> int:
     errs = phase1_kernels(torch, dev)
     errs.update(phase1_spgemm_kernels(torch, dev))
     launches, runs = phase2_main_path(torch)
-    print(f"phase2 launches on the SpMV path: {launches}")
+    print(f"phase2 launches on the SpMV block-tier path: {launches}")
+    stream_launches, stream_errs, stream_runs, auto_runs = phase2_stream(
+        torch, runs)
+    print(f"phase2 launches on the SpMV stream-tier path: {stream_launches}")
+    launches.update(stream_launches)
+    errs.update(stream_errs)
     spgemm_launches, spgemm_runs = phase2_spgemm(torch)
     print(f"phase2 launches on the SpGEMM path: {spgemm_launches}")
     launches.update(spgemm_launches)
-    check(all(n > 0 for n in launches.values()),
+    compress_launches, compress_errs, compress_runs = phase2_compress(
+        torch, spgemm_runs)
+    print(f"phase2 launches on the SpGEMM compress paths: "
+          f"{compress_launches}")
+    launches.update(compress_launches)
+    errs.update(compress_errs)
+    check(len(launches) == 7 and all(n > 0 for n in launches.values()),
           f"a kernel of the paths was not launched: {launches}")
     times = phase3_times(torch, runs, card)
     del runs
+    times += phase3_stream_times(torch, stream_runs, auto_runs, card)
+    del stream_runs, auto_runs
     times += phase3_spgemm_times(torch, spgemm_runs, card)
+    times += phase3_compress_times(torch, compress_runs, spgemm_runs, card)
 
     replaces = {
         "dia_spmv": ("bmsparse_tpu_torch/csrc/dia_spmv.cu",
@@ -657,13 +1192,26 @@ def main() -> int:
         "numeric_window": ("bmsparse_tpu_torch/csrc/spgemm_window.cu",
                            "bmsparse_tpu/ops/pallas/"
                            "spgemm_window_kernel.py:234"),
+        "window_product": ("bmsparse_tpu_torch/csrc/window_product.cu",
+                           "bmsparse_tpu/ops/pallas/shuffle_kernel.py:188"),
+        "rowwise_gather": ("bmsparse_tpu_torch/csrc/rowwise_gather.cu",
+                           "bmsparse_tpu/ops/pallas/shuffle_kernel.py:60"),
+        "segment_compress_class": (
+            "bmsparse_tpu_torch/csrc/segment_compress.cu",
+            "bmsparse_tpu/ops/pallas/compress_kernel.py:69"),
     }
     out = {"kernels": [
-        {"name": name, "route": "cuda", "source": replaces[name][0],
-         "replaces": replaces[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": t_k, "plain_ms": t_p}
-        for name, t_k, t_p in times
+        {"name": t["name"], "route": "cuda",
+         "source": replaces[t["name"]][0],
+         "replaces": replaces[t["name"]][1],
+         "launches": launches[t["name"]],
+         "max_abs_err": errs[t["name"]], "ms": t["ms"],
+         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        for t in times
     ]}
+    check(sorted(k["name"] for k in out["kernels"]) == sorted(replaces),
+          "the kernels line must list all seven kernels")
     print(card)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

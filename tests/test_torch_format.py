@@ -92,7 +92,8 @@ def test_host_converter_matches_jax(ragusa16, case, transposed):
     _, (r, c, v, shape) = list(_cases(ragusa16))[case]
     mj = bj.coo_to_bmsparse(r, c, v, shape, transposed=transposed,
                             backend="host")
-    mt = bt.coo_to_bmsparse(r, c, v, shape, transposed=transposed)
+    mt = bt.coo_to_bmsparse(r, c, v, shape, transposed=transposed,
+                            device="cpu")
     _assert_same_container(mj, mt)
     # the JAX device converter agrees on the valid blocks
     md = bj.coo_to_bmsparse(r, c, v, shape, transposed=transposed)
@@ -111,7 +112,8 @@ def test_decompress_and_coo_match_jax(ragusa16, case, transposed):
     _, (r, c, v, shape) = list(_cases(ragusa16))[case]
     mj = bj.coo_to_bmsparse(r, c, v, shape, transposed=transposed,
                             backend="host")
-    mt = bt.coo_to_bmsparse(r, c, v, shape, transposed=transposed)
+    mt = bt.coo_to_bmsparse(r, c, v, shape, transposed=transposed,
+                            device="cpu")
     np.testing.assert_array_equal(mt.decompress_blocks_flat().numpy(),
                                   np.asarray(mj.decompress_blocks_flat()))
     np.testing.assert_array_equal(mt.block_nnz().numpy(),
@@ -134,9 +136,9 @@ def test_interop_container_roundtrip(ragusa16):
             r.data.astype(np.float32), r.shape)
     mj = bj.coo_to_bmsparse(*args, backend="host")
     mt = bmsparse_from_numpy(_jax_arrays(mj), mj.num_rows, mj.num_cols,
-                             mj.nnz, mj.transposed)
+                             mj.nnz, mj.transposed, device="cpu")
     _assert_same_container(mj, mt)
-    _assert_same_container(mj, bt.coo_to_bmsparse(*args))
+    _assert_same_container(mj, bt.coo_to_bmsparse(*args, device="cpu"))
 
 
 def test_duplicates_and_empty_match_jax():
@@ -145,10 +147,10 @@ def test_duplicates_and_empty_match_jax():
     v = np.array([1.0, 2.0, 3.0, 4.0, 5.0], np.float32)
     _assert_same_container(bj.coo_to_bmsparse(r, c, v, (16, 16),
                                               backend="host"),
-                           bt.coo_to_bmsparse(r, c, v, (16, 16)))
+                           bt.coo_to_bmsparse(r, c, v, (16, 16), device="cpu"))
     e = np.empty(0, np.int32)
     ev = np.empty(0, np.float32)
-    mt = bt.coo_to_bmsparse(e, e, ev, (20, 20))
+    mt = bt.coo_to_bmsparse(e, e, ev, (20, 20), device="cpu")
     _assert_same_container(bj.coo_to_bmsparse(e, e, ev, (20, 20),
                                               backend="host"), mt)
     assert mt.generate_coo()[0].shape == (0,)
@@ -156,7 +158,7 @@ def test_duplicates_and_empty_match_jax():
 
 def test_padding_blocks_are_identity():
     r, c, v = random_coo(80, 80, density=0.05, seed=21)
-    mt = bt.coo_to_bmsparse(r, c, v, (80, 80))
+    mt = bt.coo_to_bmsparse(r, c, v, (80, 80), device="cpu")
     mp = mt.pad_to(mt.nb_pad + 33, mt.nnz_pad + 8)
     mj = bj.coo_to_bmsparse(r, c, v, (80, 80), backend="host")
     mjp = mj.pad_to(mj.nb_pad + 33, mj.nnz_pad + 8)
@@ -171,7 +173,7 @@ def test_mmread_and_compare_match_jax(ragusa16):
     from conftest import data_path
 
     path = data_path("A_matrix.mtx")
-    mt = bt.mmread_bmsparse(path)
+    mt = bt.mmread_bmsparse(path, device="cpu")
     mj = bj.mmread_bmsparse(path)
     _assert_same_container(mj, mt)
     assert mt.compare(ragusa16) == pytest.approx(mj.compare(ragusa16),
@@ -183,3 +185,23 @@ def test_mmread_and_compare_match_jax(ragusa16):
     assert mt.compare(pert) == pytest.approx(mj.compare(pert), rel=1e-12)
     assert mt.compare(pert) > 0
     np.testing.assert_allclose(mt.to_scipy().toarray(), ragusa16.toarray())
+
+
+def test_entry_points_default_to_the_card():
+    """The entry points that make a container run on the card unless the
+    caller asks for the CPU; with no card, a call that names no device
+    fails with torch's own error and does not drop to the CPU."""
+    import inspect
+
+    from conftest import data_path
+
+    for fn in (bt.coo_to_bmsparse, bt.mmread_bmsparse, bmsparse_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    r, c, v = random_coo(40, 40, density=0.1, seed=5)
+    if torch.cuda.is_available():
+        assert bt.coo_to_bmsparse(r, c, v, (40, 40)).device.type == "cuda"
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        bt.coo_to_bmsparse(r, c, v, (40, 40))
+    with pytest.raises((AssertionError, RuntimeError)):
+        bt.mmread_bmsparse(data_path("A_matrix.mtx"))

@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's execution plan with the JAX package's:
 prepare(m, stream="off") must build the same arrays, bit for bit, in
-float32 and bfloat16, on structures that exercise every tier."""
+float32 and bfloat16, on structures that exercise every block tier (the
+stream tier's plans: tests/test_torch_stream.py)."""
 
 import numpy as np
 import pytest
@@ -107,7 +108,7 @@ CASES = {
 def _matrices(name):
     r, c, v, shape = CASES[name][0]()
     return (bj.coo_to_bmsparse(r, c, v, shape, backend="host"),
-            bt.coo_to_bmsparse(r, c, v, shape))
+            bt.coo_to_bmsparse(r, c, v, shape, device="cpu"))
 
 
 def _check_features(p, want):
@@ -137,7 +138,7 @@ def test_generators_match_jax(gen, args):
 def test_prepare_matches_jax(name, dtype):
     mj, mt = _matrices(name)
     pj = prepare_j(mj, dtype=getattr(jnp, dtype), stream="off")
-    pt = prepare_t(mt, dtype=getattr(torch, dtype))
+    pt = prepare_t(mt, dtype=getattr(torch, dtype), stream="off")
     assert_same_plan(pj, pt)
     if dtype == "float32":
         _check_features(pt, CASES[name][1])
@@ -156,7 +157,7 @@ def test_prepare_sell_unit_matches_jax(sell_unit):
 def test_cast_prepared_matches_jax(name):
     mj, mt = _matrices(name)
     pj = cast_j(prepare_j(mj, stream="off"), jnp.bfloat16)
-    pt = cast_t(prepare_t(mt), torch.bfloat16)
+    pt = cast_t(prepare_t(mt, stream="off"), torch.bfloat16)
     assert_same_plan(pj, pt)
     # and the cast equals a bf16 build
     assert_same_plan(pt, prepare_t(mt, dtype=torch.bfloat16))
@@ -168,21 +169,14 @@ def test_prepare_ragusa16_and_empty(ragusa16):
             r.data.astype(np.float32), r.shape)
     assert_same_plan(
         prepare_j(bj.coo_to_bmsparse(*args, backend="host"), stream="off"),
-        prepare_t(bt.coo_to_bmsparse(*args)))
+        prepare_t(bt.coo_to_bmsparse(*args, device="cpu")))
     e = np.empty(0, np.int32)
     ev = np.empty(0, np.float32)
-    pt = prepare_t(bt.coo_to_bmsparse(e, e, ev, (16, 16)))
+    pt = prepare_t(bt.coo_to_bmsparse(e, e, ev, (16, 16), device="cpu"))
     assert_same_plan(
         prepare_j(bj.coo_to_bmsparse(e, e, ev, (16, 16), backend="host"),
                   stream="off"), pt)
     assert pt.dia is None and not pt.sell_ks
-
-
-@pytest.mark.parametrize("stream", ["auto", "force"])
-def test_stream_tier_not_ported(stream):
-    _, mt = _matrices("fem2d")
-    with pytest.raises(NotImplementedError, match="stream tier"):
-        prepare_t(mt, stream=stream)
 
 
 def test_plan_to_device_keeps_arrays():

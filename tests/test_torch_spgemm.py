@@ -115,8 +115,8 @@ def _operands(name, dtype="float32"):
     dj, dt = getattr(jnp, dtype), getattr(torch, dtype)
     aj = bj.coo_to_bmsparse(*a, backend="host").astype(dj)
     bjm = bj.coo_to_bmsparse(*b, transposed=b_t, backend="host").astype(dj)
-    at = bt.coo_to_bmsparse(*a).astype(dt)
-    btm = bt.coo_to_bmsparse(*b, transposed=b_t).astype(dt)
+    at = bt.coo_to_bmsparse(*a, device="cpu").astype(dt)
+    btm = bt.coo_to_bmsparse(*b, transposed=b_t, device="cpu").astype(dt)
     ref = (at.to_scipy().tocsr() @ btm.to_scipy().tocsr()).tocsr()
     return aj, bjm, at, btm, ref
 
@@ -241,7 +241,8 @@ def test_slab_window_plans_match_jax(monkeypatch):
     a = _square(tm.make_banded(16384, 12, seed=21), 16384)
     aj = bj.coo_to_bmsparse(*a, backend="host")
     bjm = bj.coo_to_bmsparse(*a, transposed=True, backend="host")
-    at, btm = bt.coo_to_bmsparse(*a), bt.coo_to_bmsparse(*a, transposed=True)
+    at = bt.coo_to_bmsparse(*a, device="cpu")
+    btm = bt.coo_to_bmsparse(*a, transposed=True, device="cpu")
     bj.set_config(spgemm_winkernel="off")
     bt.set_config(spgemm_winkernel="off")
     pj = sgj._plan_product(aj, bjm, None, None, PhaseTimerJ(False), False)
@@ -313,7 +314,7 @@ def test_cached_remultiply_with_new_values():
     assert_same_c(pp(a=pa), c2)
     r, c, v, shape = _square(tm.make_banded(4096, 4, seed=5), 4096)
     with pytest.raises(ValueError, match="structure"):
-        pp(a=bt.coo_to_bmsparse(r, c, v, shape))
+        pp(a=bt.coo_to_bmsparse(r, c, v, shape, device="cpu"))
 
 
 def test_result_feeds_spmv_and_spgemm():
@@ -329,8 +330,9 @@ def test_result_feeds_spmv_and_spgemm():
 
 def test_float64_runs_plain():
     a, b, b_t = CASES["random64x48"]()
-    at = bt.coo_to_bmsparse(*a).astype(torch.float64)
-    btm = bt.coo_to_bmsparse(*b, transposed=b_t).astype(torch.float64)
+    at = bt.coo_to_bmsparse(*a, device="cpu").astype(torch.float64)
+    btm = bt.coo_to_bmsparse(*b, transposed=b_t,
+                             device="cpu").astype(torch.float64)
     c = bt.spgemm(at, btm)
     assert c.values.dtype == torch.float64
     assert all(w is None for w in bt.prepare_product(at, btm).plan.pwin)
@@ -349,16 +351,16 @@ def test_errors_and_what_is_not_ported():
     with pytest.raises(ValueError, match="untransposed"):
         bt.spgemm(btm, btm)
     with pytest.raises(ValueError, match="inner dims"):
-        bt.spgemm(at, bt.coo_to_bmsparse(*_empty()[0], transposed=True))
-    for mode in ("fold", "mxu"):
-        bt.set_config(spgemm_compress=mode)
-        try:
-            with pytest.raises(NotImplementedError, match="item 10"):
-                bt.spgemm(at, btm)
-            with pytest.raises(NotImplementedError, match="item 10"):
-                bt.prepare_product(at, btm)
-        finally:
-            bt.set_config(spgemm_compress="auto")
+        bt.spgemm(at, bt.coo_to_bmsparse(*_empty()[0], transposed=True,
+                                         device="cpu"))
+    bt.set_config(spgemm_compress="gather")
+    try:
+        with pytest.raises(ValueError, match="spgemm_compress"):
+            bt.spgemm(at, btm)
+        with pytest.raises(ValueError, match="spgemm_compress"):
+            bt.prepare_product(at, btm)
+    finally:
+        bt.set_config(spgemm_compress="auto")
 
 
 def test_verbose_phase_labels(capsys):

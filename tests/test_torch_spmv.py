@@ -66,9 +66,9 @@ def _v(n, seed=0):
 def test_spmv_matches_jax_and_oracle(name):
     r, c, vals, shape = CASES[name]()
     mj = bj.coo_to_bmsparse(r, c, vals, shape, backend="host")
-    mt = bt.coo_to_bmsparse(r, c, vals, shape)
+    mt = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
     pj = prepare_j(mj, stream="off")
-    pt = prepare_t(mt)
+    pt = prepare_t(mt, stream="off")
     v = _v(shape[1])
     u_pallas = np.asarray(bj.spmv(pj, jnp.asarray(v), impl="pallas"))
     u_xla = np.asarray(bj.spmv(pj, jnp.asarray(v), impl="xla"))
@@ -86,7 +86,8 @@ def test_main_path_tiers_all_run():
     """The roadnet case reaches every tier, so the test above covers the
     whole tiered path."""
     r, c, vals, shape = CASES["roadnet"]()
-    p = prepare_t(bt.coo_to_bmsparse(r, c, vals, shape))
+    p = prepare_t(bt.coo_to_bmsparse(r, c, vals, shape, device="cpu"),
+                  stream="off")
     windowed = [rel is not None for rel in p.sell_rel]
     assert p.dia is not None and any(windowed) and not all(windowed)
     assert p.ovf_ks
@@ -96,7 +97,7 @@ def test_main_path_tiers_all_run():
 def test_bf16_plan_matches_jax(name):
     r, c, vals, shape = CASES[name]()
     mj = bj.coo_to_bmsparse(r, c, vals, shape, backend="host")
-    mt = bt.coo_to_bmsparse(r, c, vals, shape)
+    mt = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
     pj = prepare_j(mj, dtype=jnp.bfloat16, stream="off")
     pt = prepare_t(mt, dtype=torch.bfloat16)
     assert any(rel is not None for rel in pt.sell_rel)
@@ -117,7 +118,7 @@ def test_bf16_plan_matches_jax(name):
 def test_raw_container_path_matches_jax(shape, density):
     r, c, vals = random_coo(*shape, density=density, seed=sum(shape))
     mj = bj.coo_to_bmsparse(r, c, vals, shape)
-    mt = bt.coo_to_bmsparse(r, c, vals, shape)
+    mt = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
     v = _v(shape[1], seed=1)
     want = np.asarray(bj.spmv(mj, jnp.asarray(v)))
     ref = mt.to_scipy() @ v.astype(np.float64)
@@ -129,7 +130,8 @@ def test_raw_container_path_matches_jax(shape, density):
 
 def test_float64_plan_runs_plain_on_cpu():
     r, c, vals = _clustered_coo(1024, 4, 20, 9)
-    mt = bt.coo_to_bmsparse(r, c, vals.astype(np.float64), (1024, 1024))
+    mt = bt.coo_to_bmsparse(r, c, vals.astype(np.float64), (1024, 1024),
+                            device="cpu")
     p = prepare_t(mt)
     assert p.plan_dtype == "float64"
     assert all(rel is None for rel in p.sell_rel)
@@ -142,7 +144,7 @@ def test_float64_plan_runs_plain_on_cpu():
 
 def test_errors():
     r, c, vals = random_coo(64, 64, density=0.1, seed=4)
-    mt = bt.coo_to_bmsparse(r, c, vals, (64, 64))
+    mt = bt.coo_to_bmsparse(r, c, vals, (64, 64), device="cpu")
     p = prepare_t(mt)
     v = torch.ones(64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -154,21 +156,24 @@ def test_errors():
     with pytest.raises(ValueError, match="shape"):
         bt.spmv(p, torch.ones(65))
     with pytest.raises(ValueError, match="untransposed"):
-        bt.spmv(bt.coo_to_bmsparse(r, c, vals, (64, 64), transposed=True), v)
-    with pytest.raises(NotImplementedError, match="stream tier"):
-        prepare_t(mt, stream="auto")
+        bt.spmv(bt.coo_to_bmsparse(r, c, vals, (64, 64), transposed=True,
+                                   device="cpu"), v)
+    with pytest.raises(ValueError, match="stream"):
+        prepare_t(mt, stream="on")
     with pytest.raises(NotImplementedError, match="device converter"):
-        bt.coo_to_bmsparse(r, c, vals, (64, 64), backend="device")
+        bt.coo_to_bmsparse(r, c, vals, (64, 64), backend="device",
+                           device="cpu")
 
 
 def test_empty_and_tiny():
     e = np.empty(0, np.int32)
     u = bt.spmv(prepare_t(bt.coo_to_bmsparse(
-        e, e, np.empty(0, np.float32), (16, 16))), torch.ones(16))
+        e, e, np.empty(0, np.float32), (16, 16), device="cpu")),
+        torch.ones(16))
     assert u.shape == (16,) and not u.any()
     b = bt.coo_to_bmsparse(np.zeros(5, np.int32),
                            np.arange(5, dtype=np.int32) * 7,
-                           np.ones(5, np.float32), (1, 40))
+                           np.ones(5, np.float32), (1, 40), device="cpu")
     for m in (b, prepare_t(b)):
         u = bt.spmv(m, torch.ones(40))
         assert u.shape == (1,) and u.item() == 5.0
