@@ -16,8 +16,10 @@ import torch
 
 from .format import bitmap as bm
 from .format.bmsparse import BmSparse
+from .ops.cuda.spgemm_window_kernel import _SENT_REL
 from .ops.plan import Prepared
 from .ops.route import StreamPlan
+from .ops.spgemm import _product_launches
 
 _PLAN_TENSORS = ("dia", "out_gather", "ovf_gather")
 _PLAN_GROUPS = ("sell_dense", "sell_bcol", "sell_ws", "sell_rel",
@@ -107,6 +109,9 @@ def product_plan_from_numpy(a: BmSparse, b: BmSparse,
     of arrays (tas, tbs, pws, win_starts, sig_st; entries may be None)
     and statics (groups, pwin, win, nnz_pad, num_c_nnz, ...). Missing
     fields stay unset; a_flat / b_flat are the operands' dense tiles.
+    Given groups, tas and tbs, the numeric launches are built as the
+    port's planner builds them (ops.spgemm._product_launches), ordered by
+    `chunk_amin` of the slot tables.
     Bitmap words — c_hi, c_lo, the first two sig_st columns and
     keys_tbl's columns 2-3 — may come as uint32 or as int32 views."""
     from .ops.spgemm import _ProductPlan
@@ -140,4 +145,35 @@ def product_plan_from_numpy(a: BmSparse, b: BmSparse,
         else:
             v = tensor_from_numpy(np.asarray(x), device)
         setattr(p, name, v)
+    if all(f in arrays for f in ("groups", "tas", "tbs")):
+        none = (None,) * len(p.groups)
+        if "pwin" not in arrays:
+            p.pwin = none
+        ws_host = arrays.get("pws") or none
+        if "pws" not in arrays:
+            p.pws = none
+        p.launches, p.rows, p.tas, p.tbs = _product_launches(
+            p.groups, p.pwin, p.pws, ws_host, p.tas, p.tbs,
+            chunk_amin(p.groups, p.pwin, ws_host, arrays["tas"],
+                       p.a_flat.shape[0]))
     return p
+
+
+def chunk_amin(groups, pwin, pws, tas, nb_a: int) -> np.ndarray:
+    """Per chunk of a product plan, the least A block its slots read (the
+    int64 maximum where it reads none), from host slot tables: the order
+    key of the numeric work tables (the port's planner takes it from its
+    plan packet)."""
+    big = np.iinfo(np.int64).max
+    amin = np.full(max((c1 for _, _, c1 in groups), default=0), big)
+    for g, (_, c0, c1) in enumerate(groups):
+        x = np.asarray(tas[g]).astype(np.int64)  # sell: (ch_pad, K, 128)
+        if pwin[g] is not None:                  # (ntiles, K, 8, 128)
+            ws = np.asarray(pws[g][0]).astype(np.int64)
+            x = np.where(x == _SENT_REL, -1, ws[:, None, None, None] + x)
+            x = x[:, :, :pwin[g][2]].transpose(0, 2, 1, 3)
+            x = x.reshape(-1, *x.shape[2:])      # (ntiles * t, K, 128)
+        v = np.where((x >= 0) & (x < nb_a), x, big).min(axis=(1, 2))
+        m = min(v.shape[0], c1 - c0)
+        amin[c0:c0 + m] = v[:m]
+    return amin

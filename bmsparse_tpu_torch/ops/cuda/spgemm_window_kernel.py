@@ -14,9 +14,16 @@ slots of a tile the first t_real are real; the result drops the rest:
         sum_k sum_j A[wsa[tile] + ra[tile, k, tt, l], i*8 + j]
                     * B[wsb[tile] + rb[tile, k, tt, l], j*8 + m]
 
+The kernel runs a work table of chunk slots (spgemm_kernel.GroupLaunch,
+each row carrying its tile's window starts) drawn from any number of
+K-groups, in the table's order, into one output.
+`numeric_window_groups` launches it once over all of a product's
+windowed groups; `numeric_window` over one group's tiles. Both add one to
+`numeric_window.launches` per launch.
+
 The constants below are the TPU kernel's, copied as they are so that both
 packages accept the same windows; they describe VMEM, not Hopper, whose
-kernel reads the windows from global memory.
+kernel copies each task's two tiles from global memory.
 """
 
 from __future__ import annotations
@@ -24,7 +31,10 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .spgemm_kernel import check_slots, check_tables, products_plain
+from .spgemm_kernel import (
+    GroupLaunch, check_launch, check_slots, check_tables, groups_plain,
+    products_plain, run_launch,
+)
 
 TILE_CHUNKS = 8        # chunk slots per tile (t_real of them real)
 W_MAX = 4096           # max window rows per side
@@ -62,34 +72,57 @@ def numeric_window_plain(a_flat, b_flat, ra, rb, wsa, wsb, kg: int,
                           absolute(rb, wsb))
 
 
+def window_launch(ra, rb, wsa, wsb, kg: int, t_real: int) -> GroupLaunch:
+    """The one-group launch of (ntiles, K, 8, 128) window-relative tables:
+    the t_real real chunk slots of each tile, in order; built on their
+    device without a host copy."""
+    ntiles = ra.shape[0]
+    j = torch.arange(ntiles * t_real, device=ra.device)
+    tile, tt = j // t_real, j % t_real
+    work = torch.stack([torch.full_like(j, kg),
+                        tile * kg * TILE_CHUNKS + tt,
+                        wsa.long()[tile], wsb.long()[tile], j],
+                       dim=1).int()
+    return GroupLaunch(work, ra.view(-1, 128), rb.view(-1, 128), kg,
+                       ((0, ntiles * t_real * 128,
+                         (ra, rb, wsa, wsb, kg, t_real)),))
+
+
+def numeric_window_groups_plain(a_flat, b_flat, launch: GroupLaunch,
+                                out: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of `numeric_window_groups` (any float dtype)."""
+    return groups_plain(numeric_window_plain, a_flat, b_flat, launch, out)
+
+
+def numeric_window_groups(a_flat, b_flat, launch: GroupLaunch,
+                          out: torch.Tensor) -> torch.Tensor:
+    """The products of every chunk slot of `launch` into out, in one
+    launch of csrc/spgemm_window.cu for CUDA tensors; tensors on the CPU
+    take `numeric_window_groups_plain`. Returns out."""
+    check_launch(a_flat, b_flat, launch, out)
+    if a_flat.device.type == "cpu":
+        return numeric_window_groups_plain(a_flat, b_flat, launch, out)
+    if launch.work.shape[0]:
+        run_launch("bmsp_numeric_window", a_flat, b_flat, launch, out)
+        numeric_window.launches += 1
+    return out
+
+
 def numeric_window(a_flat, b_flat, ra, rb, wsa, wsb, kg: int,
                    t_real: int = TILE_CHUNKS) -> torch.Tensor:
-    """One K-group's products through its tile windows: launches
-    csrc/spgemm_window.cu for CUDA tensors; tensors on the CPU take
-    `numeric_window_plain`."""
+    """One K-group's products through its tile windows:
+    csrc/spgemm_window.cu over the group's one-group work table for CUDA
+    tensors; tensors on the CPU take `numeric_window_plain`."""
     _check(a_flat, b_flat, ra, rb, wsa, wsb, kg, t_real)
     if a_flat.device.type == "cpu":
         return numeric_window_plain(a_flat, b_flat, ra, rb, wsa, wsb, kg,
                                     t_real)
-    if a_flat.device.type != "cuda":
-        raise ValueError(f"numeric_window: unsupported device "
-                         f"{a_flat.device}")
-    ntiles = ra.shape[0]
-    out = torch.empty((ntiles * t_real * 128, 64), dtype=torch.float32,
+    out = torch.empty((ra.shape[0] * t_real * 128, 64), dtype=torch.float32,
                       device=a_flat.device)
     if out.numel() == 0:
         return out
-    lib = build.load()
-    with torch.cuda.device(a_flat.device):
-        err = lib.bmsp_numeric_window(
-            a_flat.data_ptr(), b_flat.data_ptr(),
-            int(a_flat.dtype == torch.bfloat16), a_flat.shape[0],
-            b_flat.shape[0], ra.data_ptr(), rb.data_ptr(), wsa.data_ptr(),
-            wsb.data_ptr(), ntiles, kg, t_real, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    build.check(err, "numeric_window launch")
-    numeric_window.launches += 1
-    return out
+    return numeric_window_groups(
+        a_flat, b_flat, window_launch(ra, rb, wsa, wsb, kg, t_real), out)
 
 
 numeric_window.launches = 0

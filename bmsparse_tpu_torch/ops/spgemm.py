@@ -14,9 +14,13 @@ plan array equals the JAX package's at every position, padding included:
   plan: SELL-sigma order of C blocks, K-groups of 128-block chunks, slot
         operand tables, tile windows        (_plan_sell_device, _plan_stage2)
 
-  numeric: per K-group, one of two hand-written Hopper kernels:
-      csrc/spgemm_window.cu  (numeric_window) for groups with a tile-window
-                             plan (the JAX package's numeric_window_pallas),
+  numeric: two hand-written Hopper kernels, each launched once per
+      product over a work table of 128-block chunks that the plan orders
+      by the chunk's first A block (_product_launches), both writing one
+      c_rows:
+      csrc/spgemm_window.cu  (numeric_window) for the groups with a
+                             tile-window plan (the JAX package's
+                             numeric_window_pallas),
       csrc/spgemm_sell.cu    (numeric_sell) for every other group (its
                              numeric_sell_pallas, gather fused in).
   compress: bit-order packing (_pack_rows), then one of three ways to
@@ -440,28 +444,29 @@ def _use_kernels(impl: str, device: torch.device, dtype) -> bool:
     return kernels
 
 
-def _numeric_sell_parts(a_flat, b_flat, tas: tuple, tbs: tuple,
-                        groups: list, kernels: bool,
-                        pwin: tuple = (), pws: tuple = ()):
-    """Products of all K-groups from the cached slot tables: a group with
-    a tile-window plan (pwin[g] = (wa, wb, t, cap), window-relative
-    tables) runs numeric_window, every other group numeric_sell. Returns
-    c_rows: the stacked (R, 64) dense C tiles in sigma group order."""
+def _numeric_products(a_flat, b_flat, launches: tuple, rows: int,
+                      kernels: bool):
+    """Products of all K-groups from the plan's launches (window, sell):
+    one numeric_window launch over the groups with a tile-window plan and
+    one numeric_sell launch over the others (their plain twins when not
+    `kernels`), into one c_rows: the (rows, 64) dense C tiles stacked in
+    sigma group order."""
     if a_flat.dtype != b_flat.dtype:
         dt = torch.promote_types(a_flat.dtype, b_flat.dtype)
         a_flat, b_flat = a_flat.to(dt), b_flat.to(dt)
-    sell = _sk.numeric_sell if kernels else _sk.numeric_sell_plain
-    window = _wk.numeric_window if kernels else _wk.numeric_window_plain
-    parts = []
-    for gi, (kg, _, _) in enumerate(groups):
-        if pwin and pwin[gi] is not None:
-            _, _, t, cap = pwin[gi]
-            wsa, wsb = pws[gi]
-            out = window(a_flat, b_flat, tas[gi], tbs[gi], wsa, wsb, kg, t)
-            parts.append(out[: cap * 128])
-        else:
-            parts.append(sell(a_flat, b_flat, tas[gi], tbs[gi]))
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    out = torch.empty((rows, 64),
+                      dtype=torch.promote_types(a_flat.dtype, torch.float32),
+                      device=a_flat.device)
+    win, sell = launches
+    if win is not None:
+        run = (_wk.numeric_window_groups if kernels
+               else _wk.numeric_window_groups_plain)
+        run(a_flat, b_flat, win, out)
+    if sell is not None:
+        run = _sk.numeric_sell_groups if kernels \
+            else _sk.numeric_sell_groups_plain
+        run(a_flat, b_flat, sell, out)
+    return out
 
 
 def _pack_rows(c_rows, hi, lo, off):
@@ -598,14 +603,12 @@ def _compress_fold_plan(nat_off, nat_of_sig, chunk_base, nbc: int,
     return torch.where(br == q_iota, srow_ext[nat_id], big).int()
 
 
-def _numeric_stage(a_flat, b_flat, tas, tbs, sig_hi, sig_lo, sig_off, pws,
-                   groups: tuple, kernels: bool, nnz_pad: int,
-                   pwin: tuple = (), compress: str = "scatter",
-                   g_tbl=None):
+def _numeric_stage(a_flat, b_flat, launches, rows: int, sig_hi, sig_lo,
+                   sig_off, groups: tuple, kernels: bool, nnz_pad: int,
+                   compress: str = "scatter", g_tbl=None):
     """The whole numeric phase (products, K-sums, compress) on plan data;
     `compress` is the plan's compress mode."""
-    c_rows = _numeric_sell_parts(a_flat, b_flat, tas, tbs, list(groups),
-                                 kernels, pwin, pws)
+    c_rows = _numeric_products(a_flat, b_flat, launches, rows, kernels)
     if compress == "fold":
         return _compress_fold(c_rows, sig_hi, sig_lo, sig_off, g_tbl,
                               nnz_pad)
@@ -628,7 +631,7 @@ class _ProductPlan:
         "starts_sig", "cnt_sig", "ends_sig", "groups",
         "tas", "tbs", "sig_st", "sig_sigma",
         "win", "win_starts", "jmax", "g_tbl", "compress_mode",
-        "pwin", "pws", "nba_pad", "nbb_pad",
+        "pwin", "pws", "nba_pad", "nbb_pad", "launches", "rows",
         "num_tasks", "num_alive", "num_c_blocks", "num_c_nnz",
         "nbc_pad", "nb_pad_c", "nnz_pad", "a_idx", "b_idx", "c_seg",
         "cbrow", "cbcol", "c_off", "c_hi", "c_lo",
@@ -741,13 +744,15 @@ def _plan_pallas_windows(groups, amin_c, amax_c, bmin_c, bmax_c,
     CUDA kernel reads its windows from global memory, so it takes any
     window this planner accepts.
 
-    Returns (pwin, pws, nba_pad, nbb_pad): pwin[g] = (wa, wb, t, cap) or
-    None; pws[g] = (wsa, wsb) per-tile int32 starts or None."""
+    Returns (pwin, pws, ws_host, nba_pad, nbb_pad): pwin[g] = (wa, wb, t,
+    cap) or None; pws[g] = (wsa, wsb) per-tile int32 starts or None, on
+    `device`; ws_host[g] the same starts as host arrays."""
     big = np.int64(2**30)
     nba_pad = max(round_up(nb_a + 1, 128), _wk.W_MAX)
     nbb_pad = max(round_up(nb_b + 1, 128), _wk.W_MAX)
     pwin: list = []
     pws: list = []
+    ws_host: list = []
     for kg, c0, c1 in groups:
         ch = c1 - c0
         cap = bucket_size(ch, minimum=1)
@@ -791,12 +796,13 @@ def _plan_pallas_windows(groups, amin_c, amax_c, bmin_c, bmax_c,
                 continue
             wsa = np.clip(aa_t, 0, nba_pad - wa).astype(np.int32)
             wsb = np.clip(ab_t, 0, nbb_pad - wb).astype(np.int32)
-            found = ((wa, wb, t, cap),
-                     (_to_device(wsa, device), _to_device(wsb, device)))
+            found = ((wa, wb, t, cap), (wsa, wsb))
             break
         pwin.append(None if found is None else found[0])
-        pws.append(None if found is None else found[1])
-    return tuple(pwin), tuple(pws), nba_pad, nbb_pad
+        ws_host.append(None if found is None else found[1])
+        pws.append(None if found is None else tuple(
+            _to_device(w, device) for w in found[1]))
+    return tuple(pwin), tuple(pws), tuple(ws_host), nba_pad, nbb_pad
 
 
 def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
@@ -852,7 +858,7 @@ def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
         wk = cfg.spgemm_winkernel
         if wk not in ("auto", "on", "off"):
             raise ValueError(f"unknown spgemm_winkernel {wk!r}")
-        p.pwin, p.pws, p.nba_pad, p.nbb_pad = _plan_pallas_windows(
+        p.pwin, p.pws, ws_host, p.nba_pad, p.nbb_pad = _plan_pallas_windows(
             p.groups, amin_c, amax_c, bmin_c, bmax_c, nb_a, nb_b,
             enable=(
                 (wk == "on" or (wk == "auto" and dev.type == "cuda"))
@@ -892,7 +898,76 @@ def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
             p.num_c_blocks, p.num_c_nnz, p.pws, tuple(p.groups),
             sent_a=nb_a, sent_b=nb_b, nb_pad_c=p.nb_pad_c,
             block_rows_a=a.block_rows, pallas_win=p.pwin, fold=fold)
+        p.launches, p.rows, p.tas, p.tbs = _product_launches(
+            p.groups, p.pwin, p.pws, ws_host, p.tas, p.tbs, amin_c)
     return p
+
+
+def _product_launches(groups, pwin, pws, ws_host, tas, tbs, amin_c):
+    """The numeric phase's two launches: numeric_window over every group
+    with a tile-window plan, numeric_sell over every other group, each a
+    spgemm_kernel.GroupLaunch whose work table has one row per 128-block
+    chunk. Both write one c_rows in the stacked layout: groups in order,
+    bucket_size(ch) * 128 rows each (a window group's chunk slots past
+    that are not listed, so they are neither computed nor written).
+
+    Each table is ordered by the chunk's first A block (amin_c, per chunk
+    of the plan, host numpy; a group's padding chunks last), so the chunks
+    of the K-groups over the same block rows run side by side and share
+    their operand tiles through L2 instead of each group re-reading them
+    from device memory. ws_host[g] holds a windowed group's tile starts on
+    the host (pws[g] on the device).
+
+    Returns ((window, sell), rows, tas, tbs): a launch is None where no
+    group is of its kind; rows is c_rows' row count; tas/tbs are the
+    groups' slot tables as views into the launches' concatenated tables."""
+    big = np.iinfo(np.int64).max
+    kinds: dict = {}
+    row0 = 0
+    for g, (_, c0, c1) in enumerate(groups):
+        n = bucket_size(c1 - c0, minimum=1)
+        kinds.setdefault(pwin[g] is not None, []).append((g, row0, n))
+        row0 += n * 128
+    tas, tbs = list(tas), list(tbs)
+    launches = {}
+    for win, members in kinds.items():
+        flat = []
+        for tabs in (tas, tbs):
+            parts = [tabs[g].reshape(-1, 128) for g, _, _ in members]
+            flat.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+        work, keys, parts = [], [], []
+        base = 0
+        for g, r0, n in members:
+            kg, c0, c1 = groups[g]
+            size = tas[g].numel() // 128
+            tas[g] = flat[0][base:base + size].view(tas[g].shape)
+            tbs[g] = flat[1][base:base + size].view(tbs[g].shape)
+            j = np.arange(n)
+            if win:
+                t = pwin[g][2]
+                slot = base + j // t * kg * _wk.TILE_CHUNKS + j % t
+                wsa, wsb = (np.asarray(w, np.int64)[j // t]
+                            for w in ws_host[g])
+                args = (tas[g], tbs[g], *pws[g], kg, t)
+            else:
+                slot = base + j * kg
+                wsa = wsb = np.zeros(n, np.int64)
+                args = (tas[g], tbs[g])
+            work.append(np.stack([np.full(n, kg), slot, wsa, wsb,
+                                  r0 // 128 + j], axis=1))
+            key = np.full(n, big)
+            key[:c1 - c0] = amin_c[c0:c1]
+            keys.append(key)
+            parts.append((r0, n * 128, args))
+            base += size
+        order = np.argsort(np.concatenate(keys), kind="stable")
+        launches[win] = _sk.GroupLaunch(
+            _to_device(np.concatenate(work)[order].astype(np.int32),
+                       flat[0].device),
+            flat[0], flat[1], max(groups[g][0] for g, _, _ in members),
+            tuple(parts))
+    return ((launches.get(True), launches.get(False)), row0, tuple(tas),
+            tuple(tbs))
 
 
 def _plan_stage2(keys_tbl, starts_sig, cnt_sig, sig_cols, nat_cols,
@@ -1016,9 +1091,8 @@ def _numeric_from_plan(p: _ProductPlan, kernels: bool, a_flat=None,
     b_flat = p.b_flat if b_flat is None else b_flat
     if p.groups and p.num_c_blocks > 0:
         return _numeric_stage(
-            a_flat, b_flat, p.tas, p.tbs, *p.sig_st, p.pws,
-            tuple(p.groups), kernels, p.nnz_pad, pwin=p.pwin,
-            compress=p.compress_mode, g_tbl=p.g_tbl)
+            a_flat, b_flat, p.launches, p.rows, *p.sig_st, tuple(p.groups),
+            kernels, p.nnz_pad, compress=p.compress_mode, g_tbl=p.g_tbl)
     return torch.zeros(
         p.nnz_pad, dtype=torch.promote_types(a_flat.dtype, torch.float32),
         device=a_flat.device)

@@ -221,9 +221,77 @@ def phase1_kernels(torch, dev):
     return errs
 
 
+def group_launches(torch, specs, nb, g, order=True):
+    """Random operand slots for K-groups of one kind and the planner's
+    launch over them (ops/spgemm.py::_product_launches), on the card:
+    specs per group (kg, ch) for numeric_sell, (kg, ch, t, w) for
+    numeric_window; a trailing "empty" makes a group read only
+    sentinels. Random chunk keys interleave the groups (order=False keeps
+    group order). Returns (launch, rows)."""
+    from bmsparse_tpu_torch.config import bucket_size
+    from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
+        _SENT_REL, TILE_CHUNKS, W_MAX,
+    )
+    from bmsparse_tpu_torch.ops.spgemm import _product_launches
+
+    nb_pad = max(-(-(nb + 1) // 128) * 128, W_MAX)
+    window = isinstance(specs[0][2] if len(specs[0]) > 2 else None, int)
+    groups, pwin, pws, ws_host, tas, tbs = [], [], [], [], [], []
+    c0 = 0
+    for spec in specs:
+        kg, ch = spec[:2]
+        cap = bucket_size(ch, minimum=1)
+        if window:
+            t, w = spec[2:4]
+            ntiles = -(-cap // t)
+            shape = (ntiles, kg, TILE_CHUNKS, 128)
+            ws = [torch.randint(0, (nb_pad - w) // 128 + 1, (ntiles,),
+                                generator=g, device="cuda",
+                                dtype=torch.int32) * 128 for _ in range(2)]
+            for x in ws:
+                x[-1] = nb_pad - w     # a window past the table's end
+            pwin.append((w, w, t, cap))
+            pws.append(tuple(ws))
+            ws_host.append(tuple(x.cpu().numpy() for x in ws))
+            hi, sent = w, _SENT_REL
+        else:
+            shape = (cap, kg, 128)
+            pwin.append(None)
+            pws.append(None)
+            ws_host.append(None)
+            hi, sent = nb, nb
+        tabs = []
+        for _ in range(2):
+            x = torch.randint(0, hi, shape, generator=g, device="cuda",
+                              dtype=torch.int32)
+            x[torch.rand(shape, generator=g, device="cuda") < 0.2] = sent
+            if spec[-1] == "empty":
+                x.fill_(sent)
+            tabs.append(x)
+        groups.append((kg, c0, c0 + ch))
+        tas.append(tabs[0])
+        tbs.append(tabs[1])
+        c0 += ch
+    amin = np.random.default_rng(len(specs)).integers(0, 64, c0) if order \
+        else np.zeros(c0, np.int64)
+    launches, rows, _, _ = _product_launches(groups, pwin, pws, ws_host, tas,
+                                             tbs, amin)
+    return launches[0] if window else launches[1], rows
+
+
 def phase1_spgemm_kernels(torch, dev):
-    """The SpGEMM kernels against their plain versions, at the slot-table
-    shapes of blockdense64k (numeric_sell) and band2M (numeric_window)."""
+    """The SpGEMM kernels against their plain versions: per group at the
+    slot-table shapes of blockdense64k (numeric_sell) and band2M
+    (numeric_window), and over multi-group work tables in one launch
+    (K = 1 with padding chunks, groups deeper than one slot slice, an
+    all-sentinel group, t_real < 8, windows past the table's end)."""
+    from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import (
+        numeric_sell_groups, numeric_sell_groups_plain,
+    )
+    from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
+        numeric_window_groups, numeric_window_groups_plain,
+    )
+
     from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import (
         numeric_sell, numeric_sell_plain,
     )
@@ -277,6 +345,33 @@ def phase1_spgemm_kernels(torch, dev):
             errs["numeric_window"] = max(errs["numeric_window"], err)
             print(f"phase1 numeric_window nb={nb} ntiles={ntiles} K={k} "
                   f"W={w} t_real={t_real} {dt}: max_abs_err={err!r}")
+    for kname, nb, specs in (
+            ("numeric_sell", 40_960, [(2, 3), (1, 1594)]),
+            ("numeric_sell", 40_960, [(40, 5), (3, 7), (2, 4, "empty")]),
+            ("numeric_window", 786_432, [(3, 2048, 8, 4096),
+                                         (2, 4096, 8, 2048),
+                                         (1, 4096, 8, 2048)]),
+            ("numeric_window", 786_432, [(24, 3, 2, 512), (2, 33, 4, 2048),
+                                         (1, 10, 1, 256)])):
+        # scaled by 1/4: C near 1 at depth 40, where only the order of
+        # the float32 sums differs between kernel and plain version
+        a = torch.randn((nb, 64), generator=g, device=dev) / 4
+        b = torch.randn((nb, 64), generator=g, device=dev) / 4
+        launch, rows = group_launches(torch, specs, nb, g)
+        fn, plain = ((numeric_sell_groups, numeric_sell_groups_plain)
+                     if kname == "numeric_sell" else
+                     (numeric_window_groups, numeric_window_groups_plain))
+        for dt in (torch.float32, torch.bfloat16):
+            args = (a.to(dt), b.to(dt), launch)
+            got = fn(*args, torch.full((rows, 64), float("nan"), device=dev))
+            want = plain(*args, torch.empty((rows, 64), device=dev))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **TOL)
+            err = max_abs(got, want)
+            errs[kname] = max(errs[kname], err)
+            print(f"phase1 {kname} one launch over K-groups {specs} "
+                  f"({launch.work.shape[0]} chunks) nb={nb} {dt}: "
+                  f"max_abs_err={err!r}")
     return errs
 
 
@@ -572,8 +667,6 @@ def phase2_spgemm(torch):
         counts = {"numeric_sell": numeric_sell.launches,
                   "numeric_window": numeric_window.launches}
         t2 = time.perf_counter()
-        for k in launches:
-            launches[k] += counts[k]
         syncs = (count_syncs(lambda: bt.spgemm(a, b), torch),
                  count_syncs(pp, torch))
         print(f"phase2 spgemm {name}: host syncs of one-shot spgemm() "
@@ -614,9 +707,21 @@ def phase2_spgemm(torch):
         check(c.nnz >= ref.nnz, f"{name}: nnz(C) below scipy's")
         check(rel <= 1e-4, f"{name}: max error {rel} vs scipy")
         n_win = sum(w is not None for w in p.pwin)
-        check(counts["numeric_window"] == 2 * n_win
-              and counts["numeric_sell"] == 2 * (len(p.groups) - n_win),
-              f"{name}: a K-group did not launch its kernel")
+        # one launch per kernel per product, over all its K-groups: two
+        # products here (spgemm() and pp())
+        check(counts["numeric_window"] == 2 * (n_win > 0)
+              and counts["numeric_sell"] == 2 * (len(p.groups) > n_win),
+              f"{name}: expected one launch per kernel kind and product, "
+              f"got {counts}")
+        numeric_sell.launches = numeric_window.launches = 0
+        pp()
+        torch.cuda.synchronize()
+        one = (numeric_window.launches, numeric_sell.launches)
+        print(f"phase2 spgemm {name}: one pp() launches numeric_window "
+              f"{one[0]} and numeric_sell {one[1]} times")
+        check(max(one) <= 1, f"{name}: pp() launched a kernel twice")
+        for k in launches:
+            launches[k] += counts[k]
         if name == "blockdense64k":
             check(counts["numeric_sell"] > 0 and n_win == 0,
                   "blockdense64k: expected numeric_sell and no tile window")
@@ -646,8 +751,8 @@ def mxu_inputs(pp):
     from bmsparse_tpu_torch.ops import spgemm as sg
 
     p = pp.plan
-    c_rows = sg._numeric_sell_parts(p.a_flat, p.b_flat, p.tas, p.tbs,
-                                    list(p.groups), True, p.pwin, p.pws)
+    c_rows = sg._numeric_products(p.a_flat, p.b_flat, p.launches, p.rows,
+                                  True)
     t_rows = -(-p.nnz_pad // 64)
     return list(sg._mxu_class_inputs(c_rows, *p.sig_st, p.groups)), t_rows
 
@@ -940,13 +1045,17 @@ def phase3_compress_times(torch, compress_runs, spgemm_runs, card):
 def phase3_spgemm_times(torch, runs, card):
     """Per matrix: one-shot spgemm, the cached numeric call on kernels and
     on plain torch, its roofline share and device profile; then each
-    kernel alone against its plain version."""
+    kernel alone at its cell (numeric_sell at blockdense64k,
+    numeric_window at band2M): the main path's one launch over all its
+    K-groups against the same kernel launched once per group, once in
+    group order, and the plain twin."""
     import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.ops import spgemm as sg
     from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import (
-        numeric_sell, numeric_sell_plain,
+        numeric_sell_groups, numeric_sell_groups_plain,
     )
     from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
-        _SENT_REL, numeric_window, numeric_window_plain,
+        _SENT_REL, numeric_window_groups, numeric_window_groups_plain,
     )
     from bmsparse_tpu_torch.utils import roofline as rl
 
@@ -980,56 +1089,97 @@ def phase3_spgemm_times(torch, runs, card):
         del pp_plain
 
     kernels = []
-    for kname, mname, fn, plain in (
-            ("numeric_sell", "blockdense64k", numeric_sell, numeric_sell_plain),
-            ("numeric_window", "band2M", numeric_window,
-             numeric_window_plain)):
+    for kname, mname in (("numeric_sell", "blockdense64k"),
+                         ("numeric_window", "band2M")):
         p = runs[mname][3].plan
         win = kname == "numeric_window"
-        calls = [
-            (p.tas[g], p.tbs[g]) + ((*p.pws[g], kg, p.pwin[g][2]) if win
-                                    else ())
-            for g, (kg, _, _) in enumerate(p.groups)
-            if (p.pwin[g] is not None) == win]
+        fn, plain = ((numeric_window_groups, numeric_window_groups_plain)
+                     if win else (numeric_sell_groups,
+                                  numeric_sell_groups_plain))
+        launch = p.launches[0 if win else 1]
+        members = [g for g in range(len(p.groups))
+                   if (p.pwin[g] is not None) == win]
+        ws_host = [None if w is None else tuple(x.cpu().numpy() for x in w)
+                   for w in p.pws]
+        no_order = np.zeros(p.nbc_pad // 128, np.int64)
 
-        def run_groups(f, calls=calls, p=p):
-            return [f(p.a_flat, p.b_flat, *args) for args in calls]
+        def launches_of(gs):
+            """The planner's launch over groups gs, in group and chunk
+            order, writing rows from 0."""
+            (lw, ls), rows, _, _ = sg._product_launches(
+                [p.groups[g] for g in gs], [p.pwin[g] for g in gs],
+                [p.pws[g] for g in gs], [ws_host[g] for g in gs],
+                [p.tas[g] for g in gs], [p.tbs[g] for g in gs], no_order)
+            return (lw if win else ls), rows
 
-        # bound: the slot tables, each distinct operand tile once, the C
-        # tiles written once; 1,024 float32 operations per live task
+        ab = (p.a_flat, p.b_flat)
+        out = torch.empty((p.rows, 64), device="cuda")
+        # the kernel launched once per group, into one output each (the
+        # per-group layout, whose outputs a torch.cat then joined), and
+        # once over all groups in group order (no L2 ordering)
+        per_group = [(lg, torch.empty((rows, 64), device="cuda"))
+                     for lg, rows in (launches_of([g]) for g in members)]
+        unordered = launches_of(members)[0]
+        variants = (
+            ("one launch, ordered (the main path)",
+             lambda: fn(*ab, launch, out)),
+            ("one launch, group order", lambda: fn(*ab, unordered, out)),
+            ("one launch per group",
+             lambda: [fn(*ab, lg, o) for lg, o in per_group]),
+            ("plain twin", lambda: plain(*ab, launch, out)))
+        times = {}
+        for what, f in variants:
+            prof = device_profile(f, torch)
+            times[what] = (median_ms(f, torch),
+                           None if prof is None else prof[0])
+            print(f"phase3 {kname} {mname} {what}: event "
+                  f"{times[what][0]!r} ms; {profile_text(prof)} "
+                  f"(torch.profiler) [{card}]")
+        outs = [o for _, o in per_group]
+        t_cat = median_ms(lambda: torch.cat(outs), torch)
+        print(f"phase3 {kname} {mname}: the copy that joins per-group "
+              f"outputs (torch.cat of {len(outs)} outputs, "
+              f"{nbytes(*outs)} bytes): {t_cat!r} ms [{card}]")
+
+        # bound: the slot and work tables, each distinct operand tile
+        # once, the C rows the main path keeps written once; 1,024 float32
+        # operations per live task
         nb_a, nb_b = p.a_flat.shape[0], p.b_flat.shape[0]
-        outs = run_groups(fn)
-        k_bytes = nbytes(*outs)
+        kept = sum(rows for _, rows, _ in launch.parts)
+        k_bytes = nbytes(launch.slots_a, launch.slots_b, launch.work) \
+            + kept * 64 * 4
+        group_rows = 0           # rows of full per-group outputs
         flops = 0
         ia, ib = [], []
-        for args in calls:
+        for _, rows, args in launch.parts:
             ta, tb = args[0], args[1]
-            k_bytes += nbytes(*(a for a in args if hasattr(a, "numel")))
             if win:
-                wsa, wsb = args[2], args[3]
+                wsa, wsb, _, t = args[2:]
+                group_rows += ta.shape[0] * t * 128
                 ok = (ta != _SENT_REL) & (tb != _SENT_REL)
                 ta = torch.where(ta != _SENT_REL,
                                  ta + wsa[:, None, None, None], nb_a)
                 tb = torch.where(tb != _SENT_REL,
                                  tb + wsb[:, None, None, None], nb_b)
             else:
+                group_rows += rows
                 ok = (ta < nb_a) & (tb < nb_b)
             flops += 1024 * int(ok.sum())
             ia.append(ta.reshape(-1))
             ib.append(tb.reshape(-1))
         row = p.a_flat.shape[1] * p.a_flat.element_size()
         k_bytes += row * (distinct(ia, nb_a) + distinct(ib, nb_b))
-        del outs
-
-        t_k = median_ms(lambda: run_groups(fn), torch)
-        t_p = median_ms(lambda: run_groups(plain), torch)
-        print(f"phase3 {kname} {mname} ({len(calls)} K-groups): kernel "
-              f"{t_k!r} ms, plain {t_p!r} ms [{card}]")
-        for what, f in (("kernel", fn), ("plain", plain)):
-            prof = device_profile(lambda: run_groups(f), torch)
-            print(f"phase3 {kname} {mname} {what}: {profile_text(prof)} "
-                  f"(torch.profiler) [{card}]")
-        kernels.append(kernel_row(kname, t_k, t_p, bound(k_bytes, flops)))
+        bnd = bound(k_bytes, flops)
+        bnd_groups = bound(k_bytes + (group_rows - kept) * 64 * 4, flops)
+        main = times["one launch, ordered (the main path)"]
+        print(f"phase3 {kname} {mname} ({len(members)} K-groups, "
+              f"{launch.work.shape[0]} chunks, one launch): event {main[0]!r}"
+              f" ms, device {main[1]!r} ms; bound {bnd[0]!r} ms "
+              f"({bnd[1]}; {k_bytes} bytes, {flops} flops); with the "
+              f"per-group outputs' trimmed rows written {bnd_groups[0]!r} ms "
+              f"[{card}]")
+        kernels.append(kernel_row(kname, main[0],
+                                  times["plain twin"][0], bnd))
     return kernels
 
 

@@ -10,7 +10,11 @@ against JAX spgemm(impl="pallas") (Pallas kernels in interpret mode) at
 rtol = atol = 1e-5 (only the order of float32 sums differs), and against
 scipy in float64 with the JAX suite's bound, mean relative error < 1e-5.
 The port's numeric stage also runs on the JAX package's own plan, carried
-across with interop.product_plan_from_numpy.
+across with interop.product_plan_from_numpy. The numeric work tables (one
+launch per kernel kind over all K-groups) are the port's own: they are
+checked to cover every chunk once, in the stacked row layout, ordered by
+the chunk's first A block, and their plain twin against the JAX package's
+_numeric_sell_parts.
 """
 
 import dataclasses
@@ -32,7 +36,8 @@ from bmsparse_tpu.utils.timing import PhaseTimer as PhaseTimerJ
 
 import bmsparse_tpu_torch as bt
 from bmsparse_tpu_torch.format import bitmap as bm_t
-from bmsparse_tpu_torch.interop import product_plan_from_numpy
+from bmsparse_tpu_torch.config import bucket_size
+from bmsparse_tpu_torch.interop import chunk_amin, product_plan_from_numpy
 from bmsparse_tpu_torch.ops import spgemm as sgt
 from bmsparse_tpu_torch.ops.segsort import segmented_sort, sort_by_key
 from bmsparse_tpu_torch.oracle.scipy_oracle import oracle_spgemm
@@ -102,6 +107,8 @@ CASES = {
     "blockdense16k": lambda: (
         _square(tm.make_blockdense(16384, 12000, seed=3), 16384),) * 2
         + (True,),
+    # six K-groups, five with a tile window and one without
+    "fem96": lambda: (tm.fem2d(96, seed=7),) * 2 + (True,),
     "untransposed": _untransposed,
     "empty": _empty,
     "structural_zeros": _structural_zeros,
@@ -297,6 +304,103 @@ def test_numeric_on_jax_plan(name):
     p = product_plan_from_numpy(at, btm, _jax_plan_arrays(pj))
     c = sgt._assemble_c(p, sgt._numeric_from_plan(p, kernels=False))
     assert_same_c(c, bt.spgemm(at, btm))
+    assert bt.mean_relative_error(c, ref) < MRE
+
+
+@pytest.mark.parametrize("name", ["diag_band4096", "fem96", "blockdense16k",
+                                  "random33x57"])
+def test_work_tables_cover_every_chunk(name):
+    """One numeric_window table over the windowed groups, one numeric_sell
+    table over the others: every chunk of every group exactly once (the
+    bucketed chunk count, padding chunks included), its rows at the
+    stacked layout's offset, its slot rows and window starts those of the
+    group's tables, and the rows in non-decreasing order of the chunk's
+    first A block."""
+    _, pt = _plans(name)
+    win, sell = pt.launches
+    nb_a = pt.a_flat.shape[0]
+    amin = chunk_amin(pt.groups, pt.pwin,
+                      [None if w is None else [x.numpy() for x in w]
+                       for w in pt.pws],
+                      [t.numpy() for t in pt.tas], nb_a)
+    big = np.iinfo(np.int64).max
+    seen = {}
+    row0 = 0
+    starts = []
+    for g, (_, c0, c1) in enumerate(pt.groups):
+        starts.append(row0)
+        row0 += bucket_size(c1 - c0, minimum=1) * 128
+    assert pt.rows == row0
+    for launch, is_win in ((win, True), (sell, False)):
+        if launch is None:
+            assert all((w is not None) != is_win for w in pt.pwin)
+            continue
+        stride = 8 if is_win else 1
+        keys = []
+        for kg, slot, wsa, wsb, oc in launch.work.tolist():
+            g = max(i for i, r in enumerate(starts) if r <= oc * 128)
+            j = oc - starts[g] // 128
+            kg_g, c0, c1 = pt.groups[g]
+            assert (pt.pwin[g] is not None) == is_win and kg == kg_g
+            assert (g, j) not in seen
+            seen[(g, j)] = True
+            rows = launch.slots_a[slot + np.arange(kg) * stride]
+            if is_win:
+                t = pt.pwin[g][2]
+                tile, tt = divmod(j, t)
+                want = pt.tas[g][tile, :, tt]
+                assert (wsa, wsb) == (int(pt.pws[g][0][tile]),
+                                      int(pt.pws[g][1][tile]))
+            else:
+                want = pt.tas[g][j]
+                assert wsa == wsb == 0
+            assert torch.equal(rows, want)
+            keys.append(amin[c0 + j] if j < c1 - c0 else big)
+        assert keys == sorted(keys)
+    for g, (_, c0, c1) in enumerate(pt.groups):
+        n = bucket_size(c1 - c0, minimum=1)
+        assert [j for gg, j in seen if gg == g] == list(range(n))
+    if name == "fem96":
+        assert win is not None and sell is not None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_product_twin_matches_jax_numeric(dtype):
+    """The per-product plain twin (both kinds' launches into one c_rows)
+    against the JAX package's _numeric_sell_parts, Pallas kernels in
+    interpret mode, on a plan with window and sell groups."""
+    pj, pt = _plans("fem96", dtype)
+    assert None in pt.pwin and any(w is not None for w in pt.pwin)
+    want = np.asarray(sgj._numeric_sell_parts(
+        pj.a_flat, pj.b_flat, pj.tas, pj.tbs, pj.groups, "pallas", pj.win,
+        pj.win_starts, pj.pwin, pj.pws, pj.nba_pad, pj.nbb_pad))
+    got = sgt._numeric_products(pt.a_flat, pt.b_flat, pt.launches, pt.rows,
+                                kernels=False)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    # the rows of each group's real chunks: a padding chunk's slots carry
+    # the next group's blocks, which may lie outside the tile's window,
+    # where the TPU kernel's in-VMEM gather reads positions it does not
+    # bound (the port reads the blocks they stand for); their bitmaps are
+    # empty, so no compress reads them
+    real = np.zeros(pt.rows, bool)
+    row0 = 0
+    for _, c0, c1 in pt.groups:
+        real[row0:row0 + (c1 - c0) * 128] = True
+        row0 += bucket_size(c1 - c0, minimum=1) * 128
+    assert not (pt.sig_st[0].numpy()[~real] | pt.sig_st[1].numpy()[~real]
+                ).any()
+    np.testing.assert_allclose(got.numpy()[real], want[real], **PARITY)
+    # the kernel wrappers take their plain twins for CPU tensors
+    got_k = sgt._numeric_products(pt.a_flat, pt.b_flat, pt.launches, pt.rows,
+                                  kernels=True)
+    torch.testing.assert_close(got_k, got, rtol=0, atol=0)
+
+
+def test_cached_product_matches_jax_pallas_mixed_groups():
+    aj, bjm, at, btm, ref = _operands("fem96")
+    cj = sgj.spgemm(aj, bjm, impl="pallas")
+    c = bt.prepare_product(at, btm)()
+    assert_same_c(cj, c)
     assert bt.mean_relative_error(c, ref) < MRE
 
 

@@ -8,9 +8,15 @@ windows that run past the end of the operand table, tiles with fewer than
 products of bfloat16 values are exact in float32, so only the order of
 the float32 sums differs.
 
+Each kernel also runs a work table over several K-groups in one launch
+(numeric_sell_groups, numeric_window_groups), built by the planner's
+ops.spgemm._product_launches. On the CPU an interpreter of the work table,
+reading slots the way csrc/spgemm_tiles.cuh does, must give the plain twin
+(the per-group plain versions at their row offsets).
+
 The cases marked `gpu` hold the CUDA kernels against the plain versions on
-the card, at the slot-table shapes of the bench's SpGEMM cases, and skip
-where there is none. They import no JAX:
+the card, at the slot-table shapes of the bench's SpGEMM cases and on
+multi-group tables, and skip where there is none. They import no JAX:
     python -m pytest tests/test_torch_spgemm_kernels.py --noconftest -m gpu
 """
 
@@ -21,13 +27,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from bmsparse_tpu_torch.config import bucket_size
 from bmsparse_tpu_torch.ops.cuda import spgemm_window_kernel as wk
 from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import (
-    numeric_sell, numeric_sell_plain,
+    numeric_sell, numeric_sell_groups, numeric_sell_groups_plain,
+    numeric_sell_plain, products_plain,
 )
 from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
-    _SENT_REL, TILE_CHUNKS, numeric_window, numeric_window_plain,
+    _SENT_REL, TILE_CHUNKS, numeric_window, numeric_window_groups,
+    numeric_window_groups_plain, numeric_window_plain,
 )
+from bmsparse_tpu_torch.ops.spgemm import _product_launches
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -98,6 +108,90 @@ def _transposed(ref, x, dtype):
 
 def _rounded(x, dtype):
     return _t(x, getattr(torch, dtype))
+
+
+def multi_group(specs, nb, seed=0, device=None, dtype=torch.float32):
+    """Operand tables and one launch over several K-groups, built by the
+    planner's _product_launches. specs: per group (kg, ch) for a sell
+    group, (kg, ch, t, w) for a window group (all of one kind); a group
+    named "empty" reads only sentinels. Chunk keys are random, so the
+    table interleaves the groups. The tables are scaled by 1/4 so that C
+    stays near 1 at depth 40, where only the order of the float32 sums
+    differs between kernel and twin. Returns (a, b, launch, rows,
+    window)."""
+    rng = np.random.default_rng(seed)
+    a, b = (x / 4 for x in _tables(nb, nb, seed))
+    nb_pad = max(-(-(nb + 1) // 128) * 128, wk.W_MAX)
+    window = len(specs[0]) > 2 and specs[0][2] != "empty"
+    groups, pwin, pws, tas, tbs = [], [], [], [], []
+    c0 = 0
+    for spec in specs:
+        kg, ch = spec[:2]
+        cap = bucket_size(ch, minimum=1)
+        if window:
+            t, w = spec[2:4]
+            ntiles = -(-cap // t)
+            shape = (ntiles, kg, TILE_CHUNKS, 128)
+            ws = rng.integers(0, (nb_pad - w) // 128 + 1, (2, ntiles)) * 128
+            ws[:, -1] = nb_pad - w       # a window past the table's end
+            pwin.append((w, w, t, cap))
+            pws.append(tuple(ws.astype(np.int32)))
+            hi, sent = w, _SENT_REL
+        else:
+            shape = (cap, kg, 128)
+            pwin.append(None)
+            pws.append(None)
+            hi, sent = nb, nb
+        ta, tb = (rng.integers(0, hi, shape).astype(np.int32)
+                  for _ in range(2))
+        for x in (ta, tb):
+            x[rng.random(shape) < 0.2] = sent
+            if spec[-1] == "empty":
+                x[...] = sent
+        groups.append((kg, c0, c0 + ch))
+        tas.append(_t(ta, device=device))
+        tbs.append(_t(tb, device=device))
+        c0 += ch
+    amin = rng.integers(0, 4, c0)
+    dev_ws = [None if w is None else tuple(_t(x, device=device) for x in w)
+              for w in pws]
+    launches, rows, _, _ = _product_launches(groups, pwin, dev_ws, pws, tas,
+                                             tbs, amin)
+    return (_t(a, dtype, device), _t(b, dtype, device),
+            launches[0] if window else launches[1], rows, window)
+
+
+MULTI = {
+    # blockdense64k's shape: a shallow group, then K = 1 with padding chunks
+    "sell_k1_padded": [(2, 3), (1, 100)],
+    # deeper than one 16-deep slot slice, and an all-sentinel group
+    "sell_deep": [(40, 5), (3, 7), (2, 4, "empty")],
+    # band2M's shape: K = 3 / 2 / 1 windows, t_real < 8, caps that leave
+    # padding slots in the last tile, windows past the table's end
+    "window_band": [(3, 20, 8, 4096), (2, 33, 4, 2048), (1, 10, 1, 256)],
+    "window_deep": [(24, 3, 2, 512), (1, 6, 8, 256)],
+}
+
+
+def run_table(a, b, launch, rows, window):
+    """The work table read the way csrc/spgemm_tiles.cuh reads it: for
+    each row, task k of lane l is slot row + k * stride, window-relative
+    entries offset by the row's window start; rows no work row writes
+    stay NaN."""
+    out = torch.full((rows, 64), float("nan"), dtype=torch.float32)
+    stride = TILE_CHUNKS if window else 1
+    for kg, slot, wsa, wsb, oc in launch.work.tolist():
+        at = slot + torch.arange(kg) * stride
+
+        def absolute(slots, ws):
+            r = slots[at].long().T                     # (128, kg)
+            if window:
+                r = torch.where(r == _SENT_REL, -1, ws + r)
+            return r
+
+        out[oc * 128:(oc + 1) * 128] = products_plain(
+            a, b, absolute(launch.slots_a, wsa), absolute(launch.slots_b, wsb))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +292,46 @@ def test_window_plain_is_sell_plain_on_absolute_slots():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("name", sorted(MULTI))
+def test_work_table_reads_as_the_plain_twin(name):
+    """The kernel's reading of a multi-group work table gives the plain
+    twin exactly where the twin writes, and every row of c_rows."""
+    a, b, launch, rows, window = multi_group(MULTI[name], nb=600, seed=3)
+    twin = (numeric_window_groups_plain if window
+            else numeric_sell_groups_plain)
+    want = twin(a, b, launch, torch.full((rows, 64), float("nan")))
+    got = run_table(a, b, launch, rows, window)
+    assert not torch.isnan(want).any() and not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, **TOL)
+    # the CPU wrapper is the twin, and counts no launch
+    before = (numeric_sell.launches, numeric_window.launches)
+    wrap = numeric_window_groups if window else numeric_sell_groups
+    torch.testing.assert_close(wrap(a, b, launch, torch.empty(rows, 64)),
+                               want, rtol=0, atol=0)
+    assert (numeric_sell.launches, numeric_window.launches) == before
+    # chunk rows in the table: each group's chunks once, padding included
+    # for sell groups, the cap chunk slots for window groups
+    oc = sorted(launch.work[:, 4].tolist())
+    assert oc == list(range(rows // 128))
+
+
+def test_group_launches_reject_what_the_kernels_do_not_take():
+    a, b, launch, rows, _ = multi_group(MULTI["sell_k1_padded"], nb=200)
+    with pytest.raises(ValueError, match="rows"):
+        numeric_sell_groups(a, b, launch, torch.empty(rows - 128, 64))
+    with pytest.raises(ValueError):
+        numeric_sell_groups(a, b, launch, torch.empty(rows, 32))
+    with pytest.raises(ValueError):
+        numeric_sell_groups(a, b, launch._replace(work=launch.work[:, :4]),
+                            torch.empty(rows, 64))
+    with pytest.raises(ValueError):
+        numeric_sell_groups(a, b, launch._replace(
+            slots_b=launch.slots_b.long()), torch.empty(rows, 64))
+    with pytest.raises(TypeError):
+        numeric_sell_groups(a.double(), b.double(), launch,
+                            torch.empty(rows, 64))
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels against the plain versions, on the card
 # ---------------------------------------------------------------------------
@@ -240,3 +374,28 @@ def test_spgemm_kernels_reject_mixed_devices_on_card(cuda):
     a, b, ta, tb = _sell_inputs(nb=40, ch=1, k=2)
     with pytest.raises(ValueError, match="on"):
         numeric_sell(_t(a, device=cuda), _t(b, device=cuda), _t(ta), _t(tb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MULTI))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_kernels_on_card(cuda, name, dtype):
+    """One launch over a multi-group table against the plain twin; the
+    launch counter rises by one per product call."""
+    a, b, launch, rows, window = multi_group(
+        MULTI[name], nb=330_000, seed=11, device=cuda,
+        dtype=getattr(torch, dtype))
+    fn, counted = ((numeric_window_groups, numeric_window) if window
+                   else (numeric_sell_groups, numeric_sell))
+    twin = (numeric_window_groups_plain if window
+            else numeric_sell_groups_plain)
+    before = counted.launches
+    got = fn(a, b, launch, torch.full((rows, 64), float("nan"), device=cuda))
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    want = twin(a, b, launch, torch.empty((rows, 64), device=cuda))
+    torch.testing.assert_close(got, want, **TOL)
+    # an empty table launches nothing
+    empty = launch._replace(work=launch.work[:0], parts=())
+    fn(a, b, empty, torch.empty((0, 64), device=cuda))
+    assert counted.launches == before + 1
