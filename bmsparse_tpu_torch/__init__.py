@@ -4,11 +4,12 @@ a TPU), which stays the reference: module paths match, so each function's
 counterpart is found by name.
 
 Public API:
-    BmSparse                      — container
-    coo_to_bmsparse, bmsparse_to_coo
-    read_matrix_market, mmread_bmsparse
+    BmSparse, CSRMatrix           — containers
+    coo_to_bmsparse, csr_to_bmsparse, bmsparse_to_coo, bmsparse_to_csr,
+    transpose
+    read_matrix_market, mmread_bmsparse, save_bmsparse, load_bmsparse
     prepare (ops.plan)            — tiered per-matrix SpMV plan
-    spmv                          — u = A @ v
+    spmv, csr_spmv                — u = A @ v
     spgemm                        — C = A @ B (ops.spgemm)
     prepare_product               — cached C = A @ B per structure
     mean_relative_error           — reference `compare()` semantics
@@ -27,12 +28,20 @@ Kernels (csrc/, built with nvcc at first use on a CUDA device):
 
 from .config import BLOCK_HEIGHT, BLOCK_SIZE, BLOCK_WIDTH, get_config, set_config
 from .format.bmsparse import BmSparse
-from .format.convert import bmsparse_to_coo, coo_to_bmsparse
+from .format.convert import (
+    CSRMatrix,
+    bmsparse_to_coo,
+    bmsparse_to_csr,
+    coo_to_bmsparse,
+    csr_to_bmsparse,
+    transpose,
+)
+from .io.binary import load_bmsparse, save_bmsparse
 from .io.matrix_market import mmread_bmsparse, read_matrix_market
 from .oracle.compare import assert_allclose_sparse, mean_relative_error
 from .ops.plan import Prepared, prepare
 from .ops.product import prepare_product
 from .ops.spgemm import spgemm
-from .ops.spmv import spmv
+from .ops.spmv import csr_spmv, spmv
 
 __version__ = "0.1.0"

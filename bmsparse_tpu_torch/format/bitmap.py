@@ -79,6 +79,47 @@ def prefix_popcount(bits: torch.Tensor) -> torch.Tensor:
     return (torch.cumsum(bits, dim=-1) - bits).to(torch.int32)
 
 
+def addr_grid(transposed: bool) -> np.ndarray:
+    """(8, 8) int32: intra-block address of element (rel_i, rel_j).
+
+    ``transposed`` selects the column-major layout the reference uses for
+    the B operand of SpGEMM (ref: src/bmSpMatrix.cu:91-95).
+    """
+    ri, rj = np.meshgrid(np.arange(8), np.arange(8), indexing="ij")
+    return (rj * 8 + ri if transposed else ri * 8 + rj).astype(np.int32)
+
+
+def addr_to_words(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-bit (hi, lo) int64 words of intra-block addresses `a`."""
+    a = a.long()
+    one = torch.ones((), dtype=torch.int64, device=a.device)
+    zero = torch.zeros((), dtype=torch.int64, device=a.device)
+    in_hi = a < 32
+    hi = torch.where(in_hi, one << (31 - a).clamp(0, 31), zero)
+    lo = torch.where(in_hi, zero, one << (63 - a).clamp(0, 31))
+    return hi, lo
+
+
+def coords_to_words(
+    rel_i: torch.Tensor, rel_j: torch.Tensor, transposed: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-element single-bit bitmap words for (rel_i, rel_j) coordinates.
+
+    Vectorized `coord_to_bmp` (ref: src/bmSpMatrix.cu:85-101): the (hi, lo)
+    pair with exactly the one bit of each element set; OR-reducing these
+    per block yields the block bitmap.
+    """
+    a = (rel_j * 8 + rel_i) if transposed else (rel_i * 8 + rel_j)
+    return addr_to_words(a)
+
+
+def bits_to_dense_bool(bits: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """(…, 64) bits -> (…, 8, 8) {0,1} dense occupancy, [row, col]: the
+    intra-block layout undone, whatever it was."""
+    g = bits.reshape(bits.shape[:-1] + (8, 8))
+    return g.transpose(-1, -2) if transposed else g
+
+
 def bitmap_product(
     a_hi: torch.Tensor, a_lo: torch.Tensor,
     b_hi: torch.Tensor, b_lo: torch.Tensor,

@@ -49,7 +49,9 @@ class BmSparse:
     bmp_lo: torch.Tensor   # int64[nb_pad], 32-bit patterns
     offsets: torch.Tensor  # int32[nb_pad]
     values: torch.Tensor   # dtype[nnz_pad]
-    nb: int                # number of valid (non-padding) blocks
+    # number of valid (non-padding) blocks: an int, or a 0-d device tensor
+    # where the device converter ran with compact=False (no host sync)
+    nb: int | torch.Tensor
     num_rows: int = 0
     num_cols: int = 0
     nnz: int = 0
@@ -118,6 +120,15 @@ class BmSparse:
                                                         device=vals.device))
         dense = storage_to_rowmajor(dense, self.transposed)
         return dense if dtype is None else dense.to(dtype)
+
+    def decompress_blocks(self, dtype=None) -> torch.Tensor:
+        """(nb_pad, 8, 8) dense tiles ([rel_i, rel_j]); prefer
+        `decompress_blocks_flat` on hot paths."""
+        return self.decompress_blocks_flat(dtype).reshape(self.nb_pad, 8, 8)
+
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.nb_pad, dtype=torch.int32,
+                            device=self.device) < self.nb
 
     # ------------------------------------------------------------------
     def pad_to(self, nb_pad: int, nnz_pad: int | None = None) -> "BmSparse":
@@ -213,3 +224,19 @@ class BmSparse:
             f"/{self.nb_pad}, dtype={self.dtype}, device={self.device}, "
             f"transposed={self.transposed})"
         )
+
+    def print_matrix(self, stream=None, max_entries: int = 200) -> None:
+        """Human-readable COO dump — the cusp::print analogue (the
+        reference pulls in cusp/print.h)."""
+        import sys
+
+        out = stream or sys.stdout
+        r, c, v = self.generate_coo()
+        out.write(
+            f"sparse matrix <{self.num_rows}, {self.num_cols}> "
+            f"with {len(r)} entries\n"
+        )
+        for i in range(min(len(r), max_entries)):
+            out.write(f"  {int(r[i])} {int(c[i])} {v[i]}\n")
+        if len(r) > max_entries:
+            out.write(f"  ... ({len(r) - max_entries} more)\n")

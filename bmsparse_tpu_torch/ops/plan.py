@@ -25,8 +25,9 @@ Stream — scattered structures (web graphs, uniform random matrices): the
   csrc/window_product.cu and csrc/rowwise_gather.cu) when its cost model
   says it clearly beats the block tiers, or always under stream="force".
 
-The JAX package's multi-chip options (`force_layout`, `col_shift`) and its
-plan cache on disk are not ported yet (ROADMAP).
+Plans persist on disk through io/binary.py (save_prepared, load_prepared).
+The JAX package's multi-chip options (`force_layout`, `col_shift`) are not
+ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -41,6 +42,12 @@ from ..config import BLOCK_HEIGHT
 from ..format.bmsparse import BmSparse, cdiv
 from . import route
 from .cuda import sell_kernel as _sk
+
+# The port's own stamp on plan dumps (io/binary.save_prepared): a dump
+# loads only under the stamp it was written with. Bump it whenever a
+# field of Prepared or StreamPlan changes. It starts at the JAX package's
+# layout 10, whose arrays the port's plans equal array for array.
+PLAN_LAYOUT_VERSION = 10
 
 SELL_C = 128                 # lanes per chunk
 DIA_MIN_FILL = 0.15          # min diagonal fill to justify a dense pass

@@ -193,3 +193,13 @@ def spmv(m, v: torch.Tensor, impl: str | None = None) -> torch.Tensor:
     if impl == "cuda":
         return _spmv_prepared(prepare_cached(m), v, impl)
     return _spmv_xla(m, v)
+
+
+def csr_spmv(a, v: torch.Tensor) -> torch.Tensor:
+    """u = A @ v for a CSRMatrix (format/convert.py), as a gather and an
+    index_add_ over its row ids: the CSR reference path. No kernel computes
+    it in the JAX package either."""
+    contrib = a.data * v[a.indices.long()]
+    return torch.zeros(a.num_rows, dtype=contrib.dtype,
+                       device=contrib.device).index_add_(
+        0, a.row_ids().long(), contrib)

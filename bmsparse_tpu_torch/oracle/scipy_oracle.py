@@ -54,3 +54,8 @@ def oracle_spmv(a, v, csv_out: IO | None = None, verbose: bool = False):
     if csv_out is not None:
         csv_out.write(f"{(t1 - t0) * 1e6:.0f},{(t2 - t1) * 1e6:.0f}\n")
     return u
+
+
+def dense_oracle_spgemm(a, b) -> np.ndarray:
+    """C = A @ B as a dense float64 array (small matrices only)."""
+    return _as_scipy(a).toarray() @ _as_scipy(b).toarray()

@@ -35,6 +35,11 @@ def spmv_min_bytes(nnz: int, nb: int, num_rows: int, num_cols: int,
     return nnz * value_bytes + num_rows * value_bytes
 
 
+def spmv_min_bytes_values_only(nnz: int, value_bytes: int = 4) -> int:
+    """The values-only floor: every nonzero value read once."""
+    return nnz * value_bytes
+
+
 def spgemm_min_bytes(
     nnz_a: int, nb_a: int, nnz_b: int, nb_b: int,
     num_tasks: int, nnz_c: int, nb_c: int, value_bytes: int = 4

@@ -8,6 +8,8 @@ where the JAX package blocks on a result.
 `time_op`: on a CUDA device the time of each run is taken between two
 CUDA events recorded on the current stream, so it is device time, not
 the time to enqueue; on the CPU it is the host clock around the call.
+
+`sync` waits for a result on a CUDA device (JAX's block_until_ready).
 """
 
 from __future__ import annotations
@@ -18,6 +20,16 @@ import time
 from typing import Any
 
 import torch
+
+
+def sync(x: Any = None):
+    """Wait for the device work behind x (a tensor, or anything with a
+    `device`, such as a BmSparse) where it lives on a CUDA device; return
+    x."""
+    device = getattr(x, "device", None)
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return x
 
 
 class PhaseTimer:

@@ -12,7 +12,12 @@ the public API —
          prepare_product(A, B)()) A*A on Ragusa16, blockdense64k, band2M
          and fem1M;
   SpGEMM compress alternatives: the segment compress (spgemm_compress=
-         "mxu") on band2M and fem1M, the gather-fold ("fold") on band256k —
+         "mxu") on band2M and fem1M, the gather-fold ("fold") on band256k;
+  the user surfaces (phase 4): the device converter against the host
+         converter on stencil2M and road1M, container and plan
+         persistence (road1M, web256k), write_matrix_market and both
+         parsers, cli.spmv, cli.spgemm and cli.batch on band256k, and the
+         examples cg (n = 2,097,152) and matrix_powers (n = 1,048,576) —
 checks the results against scipy in float64 and against the plain path on
 the card, shows from the launch counters that each path ran through its
 kernels, times kernel and plain paths with CUDA events beside each
@@ -1274,6 +1279,324 @@ def phase3_times(torch, runs, card):
     return kernels
 
 
+def same_blocks(torch, md, mh, what: str) -> None:
+    """md's valid blocks and values equal mh's exactly; md's padding
+    blocks (if any) are empty."""
+    nb = int(md.nb)
+    check(nb == mh.nb and md.nnz == mh.nnz,
+          f"{what}: nb {nb}/{mh.nb} or nnz {md.nnz}/{mh.nnz} differ")
+    for f in ("brow", "bcol", "bmp_hi", "bmp_lo", "offsets"):
+        check(torch.equal(getattr(md, f)[:nb], getattr(mh, f)[:nb]),
+              f"{what}: {f} differs")
+    check(torch.equal(md.values[:md.nnz], mh.values[:mh.nnz]),
+          f"{what}: values differ")
+    check(bool((md.brow[nb:] == md.block_rows).all())
+          and not bool(md.bmp_hi[nb:].any() or md.bmp_lo[nb:].any()),
+          f"{what}: padding blocks not empty")
+
+
+def phase4_converter(torch):
+    """The device converter on the card against the host converter at
+    stencil2M and road1M: equal valid blocks, device ms against host s,
+    no host copy under compact=False. Returns the host-converted
+    road1M."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.utils.testmats import make_stencil, roadnet
+    from bmsparse_tpu_torch.utils.timing import time_op
+
+    n = 2_097_152
+    road = None
+    for name, gen in (("stencil2M",
+                       lambda: (*make_stencil(n, 8, seed=6), (n, n))),
+                      ("road1M", lambda: roadnet(1_048_576, seed=8))):
+        r, c, v, shape = gen()
+        t0 = time.perf_counter()
+        mh = bt.coo_to_bmsparse(r, c, v, shape, device="cuda")
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+        # the triplets on the card once; the converter runs there alone
+        rd, cd, vd = (torch.from_numpy(x).to("cuda") for x in (r, c, v))
+        del r, c, v
+
+        def device(compact):
+            return bt.coo_to_bmsparse(rd, cd, vd, shape, compact=compact,
+                                      backend="device", device="cuda")
+
+        t_c, md = time_op(device, True, warmup=1, iters=3, device="cuda")
+        same_blocks(torch, md, mh, f"{name} device converter")
+        del md
+        t_p, mp = time_op(device, False, warmup=1, iters=3, device="cuda")
+        same_blocks(torch, mp, mh, f"{name} device converter, compact=False")
+        del mp
+        padded = []
+        syncs = count_syncs(lambda: padded.append(device(False)), torch)
+        check(not syncs and isinstance(padded[0].nb, torch.Tensor),
+              f"{name}: compact=False made host copies at {syncs}")
+        print(f"phase4 converter {name}: nnz={mh.nnz} blocks={mh.nb}; "
+              f"device converter {t_c * 1e3!r} ms (compact=True, one sync), "
+              f"{t_p * 1e3!r} ms (compact=False, host syncs {syncs}); host "
+              f"converter {t_host!r} s; valid blocks and values equal")
+        del rd, cd, vd, padded
+        if name == "road1M":
+            road = mh
+        del mh
+        torch.cuda.empty_cache()
+    return road
+
+
+def plan_items(p):
+    """(name, value) of every field of a Prepared plan and of its
+    StreamPlan but the container and the cached dense tiles."""
+    import dataclasses
+
+    for f in dataclasses.fields(p):
+        x = getattr(p, f.name)
+        if f.name in ("m", "dense_flat_"):
+            continue
+        if f.name == "stream" and x is not None:
+            for g in dataclasses.fields(x):
+                yield f"stream.{g.name}", getattr(x, g.name)
+        else:
+            yield f.name, x
+
+
+def same_value(torch, a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.is_cuda and b.is_cuda
+                and a.dtype == b.dtype and torch.equal(a, b))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(
+            same_value(torch, x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase4_persistence(torch, road, tmp):
+    """save_bmsparse/load_bmsparse of road1M; save_prepared/load_prepared
+    of road1M's block tiers and web256k's stream tier, each loaded plan
+    equal to the saved one field for field, its SpMV bitwise equal and
+    launching the plan's kernels."""
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.io.binary import load_prepared, save_prepared
+    from bmsparse_tpu_torch.ops.cuda.sell_kernel import sell_window
+    from bmsparse_tpu_torch.ops.cuda.shuffle_kernel import (
+        rowwise_gather, window_product,
+    )
+    from bmsparse_tpu_torch.ops.cuda.spmv_kernel import dia_spmv
+    from bmsparse_tpu_torch.utils.testmats import webgraph
+
+    path = os.path.join(tmp, "road1M.npz")
+    t0 = time.perf_counter()
+    bt.save_bmsparse(path, road)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = bt.load_bmsparse(path, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same_blocks(torch, loaded, road, "road1M load_bmsparse")
+    check((loaded.shape, loaded.transposed, loaded.dtype)
+          == (road.shape, road.transposed, road.dtype), "road1M: metadata")
+    print(f"phase4 persistence road1M: save_bmsparse {t_save!r} s "
+          f"({os.path.getsize(path)} bytes), load_bmsparse {t_load!r} s; "
+          f"every array equal")
+    web = bt.coo_to_bmsparse(*webgraph(262_144, avg_deg=8, seed=9),
+                             device="cuda")
+    cases = (("road1M", loaded, "off", (dia_spmv, sell_window)),
+             ("web256k", web, "force", (window_product, rowwise_gather)))
+    for name, m, stream, kernels in cases:
+        t0 = time.perf_counter()
+        p = bt.prepare(m, stream=stream)
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t0
+        f = os.path.join(tmp, f"{name}.plan")
+        save_prepared(f, p)
+        t0 = time.perf_counter()
+        p2 = load_prepared(f, m)
+        torch.cuda.synchronize()
+        t_lp = time.perf_counter() - t0
+        check(p2 is not None and p2.m is m, f"{name}: load_prepared refused")
+        for (k, a), (_, b) in zip(plan_items(p), plan_items(p2)):
+            check(same_value(torch, a, b), f"{name}: plan field {k} differs")
+        v = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            m.num_cols).astype(np.float32)).to("cuda")
+        # the stream tier's residue is an index_add_, whose atomics may
+        # add in any order: both plans run in torch's deterministic mode
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            u = bt.spmv(p, v)
+            for k in kernels:
+                k.launches = 0
+            u2 = bt.spmv(p2, v)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        counts = {k.__name__: k.launches for k in kernels}
+        print(f"phase4 persistence {name} (stream={stream!r}): prepare() "
+              f"{t_prep!r} s, load_prepared() {t_lp!r} s "
+              f"({os.path.getsize(f)} bytes); spmv on the loaded plan "
+              f"bitwise equal: {torch.equal(u, u2)}; launches {counts}")
+        check(torch.equal(u, u2), f"{name}: spmv on the loaded plan differs")
+        check(all(n > 0 for n in counts.values()),
+              f"{name}: the loaded plan's kernels were not launched")
+        del p, p2
+
+
+def run_cli(main, argv, label):
+    """Run a CLI's main(argv) in process; print its output under `label`
+    and return (rc, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"phase4 {label}: {line}")
+    return rc, out
+
+
+def final_of(out: str) -> float:
+    import re
+
+    return float(re.search(r"Final: (\S+)", out).group(1))
+
+
+def phase4_clis(torch, tmp):
+    """band256k written with write_matrix_market and read by both parsers;
+    cli.spmv, cli.spgemm (float32, bfloat16) and cli.batch on it, with
+    their checks and launch counts."""
+    import shutil
+
+    from bmsparse_tpu_torch.cli import batch, spgemm, spmv
+    from bmsparse_tpu_torch.io.matrix_market import (
+        read_matrix_market, write_matrix_market,
+    )
+    from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import numeric_sell
+    from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
+        numeric_window,
+    )
+    from bmsparse_tpu_torch.ops.cuda.spmv_kernel import dia_spmv
+    from bmsparse_tpu_torch.utils.testmats import make_banded
+
+    n = 262_144
+    r, c, v = make_banded(n, 16, seed=2)
+    path = os.path.join(tmp, "band256k.mtx")
+    t0 = time.perf_counter()
+    write_matrix_market(path, r, c, v, (n, n))
+    t_w = time.perf_counter() - t0
+    parsed = {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        rr, cc, vv, shape = read_matrix_market(path, native=native)
+        k = np.lexsort((cc, rr))
+        parsed[native] = (rr[k], cc[k], vv[k], shape,
+                          time.perf_counter() - t0)
+    nat, sci = parsed[True], parsed[False]
+    check(nat[3] == sci[3] == (n, n) and all(
+        np.array_equal(a, b) for a, b in zip(nat[:3], sci[:3])),
+        "band256k: the native parser and scipy disagree")
+    check(np.array_equal(nat[2], v[np.lexsort((c, r))]),
+          "band256k: parsed values differ from the written ones")
+    print(f"phase4 mtx band256k: nnz={len(r)} write_matrix_market {t_w!r} s; "
+          f"native parser {nat[4]!r} s, scipy {sci[4]!r} s; equal triplets")
+    del r, c, v, parsed, nat, sci
+
+    dia_spmv.launches = 0
+    rc, out = run_cli(spmv.main, [tmp, "band256k", "--check"], "cli.spmv")
+    launched = dia_spmv.launches
+    check(rc == 0 and final_of(out) < 1e-4, f"cli.spmv: rc {rc}, {out}")
+    check(launched > 0, "cli.spmv: dia_spmv not launched")
+    print(f"phase4 cli.spmv band256k: rc {rc}, dia_spmv launches {launched}")
+    for dtype, bound_ in (("float32", 1e-5), ("bfloat16", 1e-2)):
+        numeric_sell.launches = numeric_window.launches = 0
+        rc, out = run_cli(spgemm.main, [tmp, "band256k", "band256k",
+                                        "--check", "--dtype", dtype],
+                          f"cli.spgemm {dtype}")
+        counts = {"numeric_window": numeric_window.launches,
+                  "numeric_sell": numeric_sell.launches}
+        check(rc == 0 and final_of(out) < bound_,
+              f"cli.spgemm {dtype}: rc {rc}, Final above {bound_}")
+        check(sum(counts.values()) > 0,
+              f"cli.spgemm {dtype}: no product kernel launched")
+        print(f"phase4 cli.spgemm band256k {dtype}: rc {rc}, Final below "
+              f"{bound_}, launches {counts}")
+    shutil.copy(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "real", "A_matrix.mtx"), tmp)
+    lst = os.path.join(tmp, "list.txt")
+    with open(lst, "w") as f:
+        f.write("band256k\nA_matrix\n")
+    out_file = os.path.join(tmp, "spmv_out.txt")
+    rc, _ = run_cli(batch.main, ["spmv", tmp, lst, out_file,
+                                 "--args=--check"], "cli.batch")
+    with open(out_file) as f:
+        text = f.read()
+    for line in text.splitlines():
+        print(f"phase4 cli.batch out: {line}")
+    check(rc == 0 and text.count("rc=0)") == 2 and "ERROR" not in text,
+          f"cli.batch: rc {rc}")
+
+
+def phase4_examples(torch):
+    """cg at n = 2,097,152 (100 iterations, no host sync inside) and
+    matrix_powers at n = 1,048,576, band 8."""
+    from bmsparse_tpu_torch.examples import cg as cg_ex
+    from bmsparse_tpu_torch.examples import matrix_powers
+    from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import numeric_sell
+    from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
+        numeric_window,
+    )
+    from bmsparse_tpu_torch.ops.cuda.spmv_kernel import dia_spmv
+
+    n, iters = 2_097_152, 100
+    p, b = cg_ex.setup(n, "cuda")
+    cg_ex.cg(p, b, iters)
+    dia_spmv.launches = 0
+    res = []
+    syncs = count_syncs(lambda: res.append(cg_ex.cg(p, b, iters)), torch)
+    launched = dia_spmv.launches
+    x, hist = res[0]
+    r_end = float(hist[-1]) ** 0.5
+    r0 = float(torch.dot(b, b)) ** 0.5
+    ms = median_ms(lambda: cg_ex.cg(p, b, iters), torch)
+    print(f"phase4 cg n={n} iters={iters}: |r| {r_end!r} from |b| {r0!r} "
+          f"(ratio {r_end / r0!r}); host syncs in the loop {syncs}; "
+          f"dia_spmv launches {launched}; {ms * 1e3 / iters!r} us/iteration "
+          f"(events, median of {ITERS} solves)")
+    check(bool(torch.isfinite(x).all()) and r_end <= 1e-3 * r0,
+          f"cg: residual {r_end} against {r0}")
+    check(not syncs, f"cg: host syncs inside the loop at {syncs}")
+    check(launched == iters, f"cg: dia_spmv launched {launched} times")
+    del p, b, x, hist, res
+
+    numeric_sell.launches = numeric_window.launches = 0
+    r = matrix_powers.run(1_048_576, 8, device="cuda")
+    counts = {"numeric_window": numeric_window.launches,
+              "numeric_sell": numeric_sell.launches}
+    print(f"phase4 matrix_powers n={r['n']} band 8: nnz {r['nnz']}, A^2 nnz "
+          f"{r['nnz_a2']}; prepare_product {r['plan_s']!r} s; cached "
+          f"multiply {r['multiply_s'] * 1e3!r} ms (events, median of 5); "
+          f"A^4 v error vs scipy {r['err']!r}; launches {counts}")
+    check(r["err"] < matrix_powers.ERR_BOUND,
+          f"matrix_powers: error {r['err']}")
+    check(sum(counts.values()) > 0, "matrix_powers: no product kernel ran")
+
+
+def phase4_surfaces(torch):
+    """The user surfaces: the device converter, persistence, the CLIs and
+    the examples, through the public API on the card."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    road = phase4_converter(torch)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
+        phase4_persistence(torch, road, tmp)
+        del road
+        phase4_clis(torch, tmp)
+    phase4_examples(torch)
+    print(f"phase4 seconds: {time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -1331,6 +1654,9 @@ def main() -> int:
     del stream_runs, auto_runs
     times += phase3_spgemm_times(torch, spgemm_runs, card)
     times += phase3_compress_times(torch, compress_runs, spgemm_runs, card)
+    del compress_runs, spgemm_runs
+    torch.cuda.empty_cache()
+    phase4_surfaces(torch)
 
     replaces = {
         "dia_spmv": ("bmsparse_tpu_torch/csrc/dia_spmv.cu",

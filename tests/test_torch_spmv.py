@@ -160,9 +160,12 @@ def test_errors():
                                    device="cpu"), v)
     with pytest.raises(ValueError, match="stream"):
         prepare_t(mt, stream="on")
-    with pytest.raises(NotImplementedError, match="device converter"):
-        bt.coo_to_bmsparse(r, c, vals, (64, 64), backend="device",
-                           device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        bt.coo_to_bmsparse(r, c, vals, (64, 64), backend="xla", device="cpu")
+    with pytest.raises(ValueError, match="duplicate"):
+        bt.coo_to_bmsparse(np.r_[r, r[:1]], np.r_[c, c[:1]],
+                           np.r_[vals, vals[:1]], (64, 64),
+                           backend="device", device="cpu")
 
 
 def test_empty_and_tiny():
@@ -212,6 +215,10 @@ def test_port_imports_no_jax():
         "import bmsparse_tpu_torch.cli.spmv, bmsparse_tpu_torch.ops.cuda.build\n"
         "import bmsparse_tpu_torch.utils.timing, bmsparse_tpu_torch.utils.roofline\n"
         "import bmsparse_tpu_torch.oracle.scipy_oracle\n"
+        "import bmsparse_tpu_torch.io.binary, bmsparse_tpu_torch.io._native\n"
+        "import bmsparse_tpu_torch.cli.spgemm, bmsparse_tpu_torch.cli.batch\n"
+        "import bmsparse_tpu_torch.examples.cg\n"
+        "import bmsparse_tpu_torch.examples.matrix_powers\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bmsparse_tpu' or m.startswith('bmsparse_tpu.')]\n"
         "assert not bad, bad\n"
@@ -220,5 +227,7 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     pat = re.compile(r"^\s*(import jax|from jax|import bmsparse_tpu\b(?!_)"
                      r"|from bmsparse_tpu\b(?!_))", re.M)
-    for path in (REPO / "bmsparse_tpu_torch").rglob("*.py"):
+    paths = [*(REPO / "bmsparse_tpu_torch").rglob("*.py"),
+             REPO / "chip_smoke.py"]
+    for path in paths:
         assert not pat.search(path.read_text()), path
