@@ -43,8 +43,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compat flag (reference kernel variant; ignored)")
     p.add_argument("verbose", nargs="?", type=int, default=0,
                    help="1 = per-phase timings (reference VERBOSE)")
-    p.add_argument("--impl", default=None, choices=["auto", "cuda", "plain"],
-                   help="numeric implementation (default: the config's)")
+    p.add_argument("--impl", default=None,
+                   choices=["auto", "cuda", "plain", "xla"],
+                   help="numeric implementation (default: the config's); "
+                        "'xla' is the chunked numeric, plain torch")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32", "float64"],
                    help="input value dtype (the reference uses half)")

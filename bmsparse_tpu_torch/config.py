@@ -32,13 +32,14 @@ class Config:
 
     # Shape bucketing for dynamic sizes (see bucket_size).
     bucket_shapes: bool = _env_bool("BMSP_BUCKET_SHAPES", True)
-    # Default SpMV implementation: "auto" (the CUDA kernels for tensors on
-    # a CUDA device, the plain torch versions on the CPU), "cuda" (the
-    # kernels; raises on CPU tensors) or "plain" (plain torch everywhere).
+    # Default SpMV implementation: "auto" (the CUDA kernels for float32 and
+    # bfloat16 on a CUDA device, the plain torch versions on the CPU and
+    # for float64), "cuda" (the kernels; raises on CPU tensors and for
+    # float64) or "plain" (plain torch everywhere).
     spmv_impl: str = os.environ.get("BMSP_TORCH_SPMV_IMPL", "auto")
-    # Default SpGEMM implementation, with the same three values as
-    # spmv_impl ("xla" names the JAX package's chunked segment-sum path,
-    # which is not ported: ops/spgemm.py raises for it).
+    # Default SpGEMM implementation: the three values of spmv_impl, or
+    # "xla", the JAX package's chunked segment-sum numeric (plain torch on
+    # every device; ops/spgemm.py).
     spgemm_impl: str = os.environ.get("BMSP_SPGEMM_IMPL", "auto")
     # Tile-window plans for the SpGEMM K-groups (csrc/spgemm_window.cu):
     # "auto" = on for CUDA operands, "on" = always (tests, so that the

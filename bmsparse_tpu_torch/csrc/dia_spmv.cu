@@ -4,8 +4,10 @@
 // (kernel body _dia_kernel), the TPU kernel of the plan's DIA tier.
 //
 // Computes, for every element e < elems of the flat (R, 128) output,
-//     out[e] = sum_d dia[d, e] * v[e + offsets[d]],
-// where a column outside [0, n) reads 0. dia is (nd, elems) float32 or
+//     out[e] = sum_d dia[d, e] * v[e + shift + offsets[d]],
+// where a column outside [0, n) reads 0. The shift (0 on one device) is a
+// shard's column base on the multi-device path: its rows are local while v
+// and the offsets are global, or v is a halo window of the global vector. dia is (nd, elems) float32 or
 // bfloat16 (converted to float32 in registers); v, out and the sum are
 // float32.
 //
@@ -19,7 +21,9 @@
 // threads of a warp read 32 neighbouring coefficients (one 128-byte line
 // for f32) and 32 neighbouring v entries, so every load is coalesced. The
 // diagonals' v reads overlap one another and stay in L1/L2, so device
-// memory sees the strip, v about once, and the output. The offsets are
+// memory sees the strip, v about once, and the output. The shift is one
+// more kernel parameter added to the row index, so a tall matrix whose
+// late shards start past the end of v reads zeros there. The offsets are
 // passed by value in the kernel's parameter space (nd <= 128, 512 bytes):
 // every thread reads the same offset at the same time, a broadcast from
 // the constant bank, with no copy to the device per call. Index arithmetic
@@ -53,12 +57,13 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dia_spmv_kernel(const T* __restrict__ dia, const float* __restrict__ v,
                     const DiaOffsets offs, int nd, int64_t elems, int64_t n,
-                    float* __restrict__ out) {
+                    int64_t shift, float* __restrict__ out) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= elems) return;
+  const int64_t col = e + shift;
   float acc = 0.f;
   for (int d = 0; d < nd; ++d) {
-    const int64_t c = e + offs.o[d];
+    const int64_t c = col + offs.o[d];
     const float x = (c >= 0 && c < n) ? __ldg(v + c) : 0.f;
     acc = fmaf(to_f32(dia[static_cast<int64_t>(d) * elems + e]), x, acc);
   }
@@ -70,7 +75,8 @@ __global__ void __launch_bounds__(kThreads)
 // Launches on `stream` and returns cudaGetLastError(); no synchronisation.
 extern "C" int bmsp_dia_spmv(const void* dia, int dia_is_bf16, const void* v,
                              const void* offsets_host, int nd, int64_t elems,
-                             int64_t n, void* out, void* stream) {
+                             int64_t n, int64_t shift, void* out,
+                             void* stream) {
   if (nd < 0 || nd > kMaxDiags || elems < 0) return cudaErrorInvalidValue;
   DiaOffsets offs{};
   const int* src = static_cast<const int*>(offsets_host);
@@ -84,10 +90,11 @@ extern "C" int bmsp_dia_spmv(const void* dia, int dia_is_bf16, const void* v,
   if (dia_is_bf16) {
     dia_spmv_kernel<__nv_bfloat16><<<static_cast<unsigned>(blocks), kThreads,
                                      0, s>>>(
-        static_cast<const __nv_bfloat16*>(dia), vf, offs, nd, elems, n, of);
+        static_cast<const __nv_bfloat16*>(dia), vf, offs, nd, elems, n, shift,
+        of);
   } else {
     dia_spmv_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const float*>(dia), vf, offs, nd, elems, n, of);
+        static_cast<const float*>(dia), vf, offs, nd, elems, n, shift, of);
   }
   return cudaGetLastError();
 }

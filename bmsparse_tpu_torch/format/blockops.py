@@ -3,11 +3,43 @@
 Counterpart of ``bmsparse_tpu/format/blockops.py``: slot = rel_i*8 + rel_j
 (row-major). The layout is kept so that the container's decompressed
 tiles compare slot for slot with the JAX package's.
+
+An 8x8 block product in flat layout is eight multiply-adds over 64 slots:
+
+    C[t, i*8+k] = sum_j repeat8(A[:, j::8]) * tile8(B[:, j*8:j*8+8])
+
+repeat8 places A(:, i, j) at every slot i*8+k, tile8 places B(:, j, k) at
+every slot i*8+k.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def repeat8(x8: torch.Tensor) -> torch.Tensor:
+    """(n, 8) -> (n, 64) with x[:, i] at every slot i*8+k."""
+    return x8.repeat_interleave(8, dim=-1)
+
+
+def tile8(x8: torch.Tensor) -> torch.Tensor:
+    """(n, 8) -> (n, 64) with x[:, k] at every slot i*8+k."""
+    return x8.repeat((1,) * (x8.dim() - 1) + (8,))
+
+
+def block_matmul_flat(a_flat: torch.Tensor, b_flat: torch.Tensor,
+                      b_transposed: bool,
+                      acc_dtype=torch.float32) -> torch.Tensor:
+    """Per-task 8x8 block products: (n, 64) row-major A slots times (n, 64)
+    B slots in their storage layout (column-major when b_transposed) ->
+    (n, 64) row-major C, summed over j in order in acc_dtype."""
+    acc = torch.zeros(a_flat.shape, dtype=acc_dtype, device=a_flat.device)
+    for j in range(8):
+        a_j = a_flat[..., j::8]                      # A(:, i, j)
+        b_j = (b_flat[..., j::8] if b_transposed     # stored k*8+j
+               else b_flat[..., j * 8:j * 8 + 8])    # stored j*8+k
+        acc += repeat8(a_j.to(acc_dtype)) * tile8(b_j.to(acc_dtype))
+    return acc
 
 
 def block_matvec_flat(

@@ -117,7 +117,7 @@ def load() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.bmsp_dia_spmv.argtypes = [p, i32, p, p, i32, i64, i64, p, p]
+    lib.bmsp_dia_spmv.argtypes = [p, i32, p, p, i32, i64, i64, i64, p, p]
     lib.bmsp_dia_spmv.restype = i32
     lib.bmsp_sell_window.argtypes = [p, i32, p, p, p, i64, i64, i64, i64,
                                      p, p]

@@ -2,10 +2,12 @@
 version. Counterpart of ``bmsparse_tpu/ops/pallas/spmv_kernel.py``
 (``dia_spmv_pallas``).
 
-    u[e] = sum_d dia[d, e] * v[e + offsets[d]]   for e < R * 128,
+    u[e] = sum_d dia[d, e] * v[e + shift + offsets[d]]   for e < R * 128,
 
 with v read as 0 outside [0, len(v)). `dia` keeps the JAX package's
-(nd, R, 128) natural layout, the result is (R, 128) float32.
+(nd, R, 128) natural layout, the result is (R, 128) float32. The shift is
+0 on one device; a shard of the multi-device path passes its column base
+(parallel/spmv.py), which may lie past the end of v.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from . import build
 MAX_DIAGS = 128
 
 
-def _check(dia: torch.Tensor, v: torch.Tensor, offsets) -> None:
+def _check(dia: torch.Tensor, v: torch.Tensor, offsets, shift: int) -> None:
     if dia.dim() != 3 or dia.shape[2] != 128:
         raise ValueError(f"dia must be (nd, R, 128), got {tuple(dia.shape)}")
     if dia.dtype not in (torch.float32, torch.bfloat16):
@@ -36,10 +38,12 @@ def _check(dia: torch.Tensor, v: torch.Tensor, offsets) -> None:
                          f"diagonals (at most {MAX_DIAGS})")
     if any(not -2**31 <= o < 2**31 for o in offsets):
         raise ValueError("offsets must fit int32")
+    if not -2**62 <= shift < 2**62:
+        raise ValueError(f"shift {shift} out of range")
 
 
-def dia_spmv_plain(dia: torch.Tensor, v: torch.Tensor,
-                   offsets: tuple) -> torch.Tensor:
+def dia_spmv_plain(dia: torch.Tensor, v: torch.Tensor, offsets: tuple,
+                   shift: int = 0) -> torch.Tensor:
     """Plain torch version of `dia_spmv` (any float dtype; the sum is in
     float32, or float64 for float64 inputs)."""
     nd, r_rows, _ = dia.shape
@@ -48,27 +52,30 @@ def dia_spmv_plain(dia: torch.Tensor, v: torch.Tensor,
     u = torch.zeros(elems, dtype=cdt, device=dia.device)
     if nd == 0:
         return u.reshape(r_rows, 128)
-    lo = min(0, min(offsets))
-    hi = max(0, max(offsets))
-    # v behind -lo leading zeros, zero past its end: slice d starts at
-    # -lo + offsets[d] and every read outside [0, len(v)) lands on a zero
-    nv = max(0, min(v.shape[0], elems + hi))
-    vx = torch.zeros(-lo + elems + hi, dtype=cdt, device=dia.device)
-    vx[-lo:-lo + nv] = v[:nv]
+    # columns [base, top) hold every read; vx is that span of v with zeros
+    # outside [0, len(v)), so diagonal d reads vx from shift + o - base
+    base = shift + min(offsets)
+    top = shift + max(offsets) + elems
+    vx = torch.zeros(top - base, dtype=cdt, device=dia.device)
+    a, b = max(base, 0), min(top, v.shape[0])
+    if b > a:
+        vx[a - base:b - base] = v[a:b]
     flat = dia.reshape(nd, elems)
     for d, o in enumerate(offsets):
-        u += flat[d].to(cdt) * vx[-lo + o:-lo + o + elems]
+        s = shift + o - base
+        u += flat[d].to(cdt) * vx[s:s + elems]
     return u.reshape(r_rows, 128)
 
 
-def dia_spmv(dia: torch.Tensor, v: torch.Tensor,
-             offsets: tuple) -> torch.Tensor:
+def dia_spmv(dia: torch.Tensor, v: torch.Tensor, offsets: tuple,
+             shift: int = 0) -> torch.Tensor:
     """The DIA-tier kernel: launches csrc/dia_spmv.cu for CUDA tensors;
     tensors on the CPU take `dia_spmv_plain`."""
     offsets = tuple(int(o) for o in offsets)
-    _check(dia, v, offsets)
+    shift = int(shift)
+    _check(dia, v, offsets, shift)
     if dia.device.type == "cpu":
-        return dia_spmv_plain(dia, v, offsets)
+        return dia_spmv_plain(dia, v, offsets, shift)
     if dia.device.type != "cuda":
         raise ValueError(f"dia_spmv: unsupported device {dia.device}")
     lib = build.load()
@@ -78,7 +85,7 @@ def dia_spmv(dia: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dia.device):
         err = lib.bmsp_dia_spmv(
             dia.data_ptr(), int(dia.dtype == torch.bfloat16), v.data_ptr(),
-            offs, nd, r_rows * 128, v.shape[0], out.data_ptr(),
+            offs, nd, r_rows * 128, v.shape[0], shift, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "dia_spmv launch")
     dia_spmv.launches += 1

@@ -26,8 +26,10 @@ Stream — scattered structures (web graphs, uniform random matrices): the
   says it clearly beats the block tiers, or always under stream="force".
 
 Plans persist on disk through io/binary.py (save_prepared, load_prepared).
-The JAX package's multi-chip options (`force_layout`, `col_shift`) are not
-ported yet (ROADMAP).
+The multi-device options of prepare() (`force_layout`, `col_shift`) build
+one shard's plan with the static structure that parallel/plan.py unifies
+across shards; such plans keep the fixed K ladder, gather per slot and
+have no stream tier, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -239,6 +241,7 @@ def _build_sell_tier(
     slot: np.ndarray, vals: np.ndarray, binv: np.ndarray,
     nbr: int, ncu: int, cw: int, dtype: torch.dtype,
     *,
+    forced_groups=None,
     adaptive: bool = False,
     secondary_wlo: bool = False,
     win_ok: bool = False,
@@ -246,6 +249,10 @@ def _build_sell_tier(
 ):
     """Build one SELL tier over the super-slots selected by ub_idx
     (sorted global indices into the ublocks arrays).
+
+    forced_groups: (K, chunks) pairs in descending K; the chunks of depth
+    K fill group K in chunk order and the rest is padding (a shard's plan
+    in the layout parallel/plan.py unifies).
 
     elig_split: compute per-chunk window eligibility and split each K
     class into an eligible group (gets a ws/rel window plan) and a
@@ -278,7 +285,7 @@ def _build_sell_tier(
     cs_pad[: len(perm)] = counts_sorted
     cm = cs_pad.reshape(nchunks, SELL_C).max(axis=1) if nchunks else \
         np.zeros((0,), np.int64)
-    if adaptive:
+    if forced_groups is None and adaptive:
         k_chunk = _adaptive_k_buckets(cm)
     else:
         k_chunk = np.array([_bucket_k(int(k)) for k in cm], np.int64)
@@ -299,27 +306,47 @@ def _build_sell_tier(
         al = np.where(cmax < 0, 0, cmin) // 128 * 128
         elig = (cmax - al < _sk.WINDOW_UNITS) | (cmax < 0)
 
-    # groups keyed (K desc, eligible-first); chunks keep their stable
-    # order within a group
-    gkey = [
-        (-int(k), (0 if bool(e) else 1) if elig_split else 1)
-        for k, e in zip(k_chunk, elig)
-    ]
-    uniq = sorted(set(gkey))
-    gid_of = {kk: i for i, kk in enumerate(uniq)}
-    group_of_chunk = np.array(
-        [gid_of[kk] for kk in gkey], np.int64
-    ) if nchunks else np.zeros((0,), np.int64)
-    local_of_chunk = np.zeros((nchunks,), np.int64)
-    caps = np.zeros((max(len(uniq), 1),), np.int64)
-    for g in range(len(uniq)):
-        sel_c = np.nonzero(group_of_chunk == g)[0]
-        local_of_chunk[sel_c] = np.arange(len(sel_c))
-        caps[g] = len(sel_c)
-    groups = [
-        (-uniq[g][0], int(caps[g]), uniq[g][1] == 0)
-        for g in range(len(uniq))
-    ]
+    if forced_groups is not None:
+        kvals = [int(k) for k, _ in forced_groups]
+        missing = sorted(set(int(k) for k in k_chunk) - set(kvals))
+        if missing:
+            raise ValueError(f"forced layout lacks K groups {missing} this "
+                             "shard needs")
+        group_of_chunk = np.array([kvals.index(int(k)) for k in k_chunk],
+                                  np.int64)
+        local_of_chunk = np.zeros((nchunks,), np.int64)
+        seen: dict = {}
+        for c in range(nchunks):
+            g = int(group_of_chunk[c])
+            local_of_chunk[c] = seen.get(g, 0)
+            seen[g] = local_of_chunk[c] + 1
+        for g, (k, cap) in enumerate(forced_groups):
+            if seen.get(g, 0) > cap:
+                raise ValueError(f"forced K={k} group holds {cap} chunks, "
+                                 f"this shard needs {seen[g]}")
+        groups = [(int(k), int(cap), False) for k, cap in forced_groups]
+    else:
+        # groups keyed (K desc, eligible-first); chunks keep their stable
+        # order within a group
+        gkey = [
+            (-int(k), (0 if bool(e) else 1) if elig_split else 1)
+            for k, e in zip(k_chunk, elig)
+        ]
+        uniq = sorted(set(gkey))
+        gid_of = {kk: i for i, kk in enumerate(uniq)}
+        group_of_chunk = np.array(
+            [gid_of[kk] for kk in gkey], np.int64
+        ) if nchunks else np.zeros((0,), np.int64)
+        local_of_chunk = np.zeros((nchunks,), np.int64)
+        caps = np.zeros((max(len(uniq), 1),), np.int64)
+        for g in range(len(uniq)):
+            sel_c = np.nonzero(group_of_chunk == g)[0]
+            local_of_chunk[sel_c] = np.arange(len(sel_c))
+            caps[g] = len(sel_c)
+        groups = [
+            (-uniq[g][0], int(caps[g]), uniq[g][1] == 0)
+            for g in range(len(uniq))
+        ]
 
     bases = np.cumsum([0] + [cap * SELL_C for _, cap, _ in groups])
     dense_l: list = []
@@ -391,18 +418,23 @@ def _build_sell_tier(
 
 def _choose_diagonals(
     rows: np.ndarray, cols: np.ndarray, n_rows: int, n_cols: int,
+    col_shift: int = 0,
 ) -> np.ndarray:
-    """Offsets of diagonals dense enough for the DIA tier."""
+    """Offsets of diagonals dense enough for the DIA tier. With col_shift
+    (a shard's rows local, its columns global) offset o holds the entries
+    (i, i + col_shift + o)."""
     if len(rows) == 0:
         return np.empty((0,), np.int64)
-    dev = cols.astype(np.int64) - rows.astype(np.int64)
+    dev = cols.astype(np.int64) - rows.astype(np.int64) - col_shift
     # offset histogram via bincount over the bounded range
     lo_b = int(dev.min())
     hist = np.bincount(dev - lo_b)
     offs = np.nonzero(hist)[0] + lo_b
     counts = hist[offs - lo_b]
-    # diag o holds (i, i+o) for i in [max(0,-o), min(n_rows, n_cols-o))
-    length = np.minimum(n_rows, n_cols - offs) - np.maximum(0, -offs)
+    # diag o holds (i, i+col_shift+o) for
+    # i in [max(0,-col_shift-o), min(n_rows, n_cols-col_shift-o))
+    length = (np.minimum(n_rows, n_cols - col_shift - offs)
+              - np.maximum(0, -col_shift - offs))
     fill = counts / np.maximum(length, 1)
     keep = offs[fill >= DIA_MIN_FILL]
     if len(keep) > MAX_DIAGS:
@@ -413,7 +445,7 @@ def _choose_diagonals(
 
 def prepare(m: BmSparse, dtype: torch.dtype | None = None,
             sell_unit: int | None = None, stream: str = "auto",
-            device=None) -> Prepared:
+            device=None, force_layout=None, col_shift: int = 0) -> Prepared:
     """Build the tiered execution plan (host numpy, once per matrix).
 
     dtype: storage dtype of the plan tiers; defaults to the matrix's own
@@ -432,6 +464,20 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     automatic slot granularity only, as in the JAX package.
 
     device: where the finished plan lives; defaults to the matrix's.
+
+    force_layout: optional (dia_offsets, groups), groups (K, chunks) pairs
+    in descending K or None. Forces the plan's static structure:
+    diagonals absent from the matrix get zero strips, groups get padding
+    chunks, so the plans of a partitioned matrix's shards stack
+    (parallel/plan.py).
+
+    col_shift: subtracted from the column indices when scalars are
+    assigned to diagonals: a shard keeps its columns global and its rows
+    local, so diagonal offset o means v[row + col_shift + o].
+
+    A plan with either option or a fixed sell_unit keeps the fixed K
+    ladder and gathers every SELL group per slot, and stream is ignored
+    (no stream tier), as in the JAX package.
     """
     if isinstance(m, Prepared):
         return m
@@ -453,16 +499,22 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     nbr = m.block_rows
     nbc = m.block_cols
     npad = nbr * BLOCK_HEIGHT
+    forced_dia, forced_groups = force_layout if force_layout else (None, None)
 
     # ---- Tier 1: extract dense diagonals --------------------------------
     dia = None
     dia_offsets: tuple = ()
-    if len(rows):
-        offs = _choose_diagonals(rows, cols, m.num_rows, m.num_cols)
+    if len(rows) or forced_dia:
+        if forced_dia is not None:
+            offs = np.asarray(forced_dia, np.int64)
+        else:
+            offs = _choose_diagonals(rows, cols, m.num_rows, m.num_cols,
+                                     col_shift)
         if len(offs):
-            dev = cols - rows
+            dev = cols - rows - col_shift
             on_dia = np.isin(dev, offs)
-            d_slot = np.searchsorted(offs, dev[on_dia])
+            by_off = np.argsort(offs, kind="stable")
+            d_slot = by_off[np.searchsorted(offs[by_off], dev[on_dia])]
             r128 = cdiv(npad, 128)
             dia_np = np.zeros((len(offs), r128, 128), np_dtype)
             r_dia = rows[on_dia]
@@ -483,7 +535,9 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     ovf_ks: list = []
     ovf_gather = None
     ovf_rows = 0
-    single = sell_unit is None
+    # the single-device plan: automatic slot width, adaptive K classes,
+    # window plans, overflow and stream tiers
+    single = forced_groups is None and col_shift == 0 and sell_unit is None
     nblk = nwin = 0
     if single and len(rows):
         br0 = rows >> 3
@@ -512,11 +566,11 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     cw = 8
     if sell_unit is not None:
         cw = int(sell_unit)
-    elif len(rows) and stream_plan is None:
+    elif single and len(rows) and stream_plan is None:
         if nblk >= 2 * nwin and nwin * 512 * itemsize <= (2 << 30):
             cw = 64
 
-    if len(rows):
+    if len(rows) or forced_groups:
         ncu = cdiv(m.num_cols, cw)      # column units (cw scalars each)
         br = rows >> 3
         bc = cols // cw
@@ -555,8 +609,8 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
         (sell_dense, sell_bcol, sell_ks, sell_ws, sell_rel,
          og, sell_rows) = _build_sell_tier(
             core_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
-            adaptive=single, secondary_wlo=single, win_ok=win_ok,
-            elig_split=win_ok,
+            forced_groups=forced_groups, adaptive=single,
+            secondary_wlo=single, win_ok=win_ok, elig_split=win_ok,
         )
         out_gather = torch.from_numpy(og)
         if ovf_idx is not None:

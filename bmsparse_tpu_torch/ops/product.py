@@ -97,6 +97,9 @@ def prepare_product(a, b, impl: str | None = None) -> PreparedProduct:
     am, bm = as_matrix(a), as_matrix(b)
     sg._check_operands(am, bm)
     impl = impl or get_config().spgemm_impl
+    if impl == "xla":
+        raise ValueError("prepare_product supports impl 'auto'|'cuda'|"
+                         "'plain', got 'xla'")
     sg._use_kernels(impl, am.device, torch.promote_types(am.dtype, bm.dtype))
     plan = sg._plan_product(am, bm, a_prep, b_prep,
                             PhaseTimer(enabled=False), False)

@@ -40,10 +40,23 @@ indices, so numeric_sell computes the same values for them. `_plan_windows`
 is ported so that the plan arrays stay equal.
 
 impl:
-  "auto"  — the CUDA kernels for tensors on a CUDA device, their plain
-            torch versions for tensors on the CPU;
-  "cuda"  — the CUDA kernels; raises for tensors on the CPU;
-  "plain" — the plain torch versions everywhere (tests, chip_smoke.py).
+  "auto"  — the CUDA kernels for float32 and bfloat16 operands on a CUDA
+            device, their plain torch versions for tensors on the CPU and
+            for float64 operands (the kernels take float32 and bfloat16;
+            the JAX package likewise keeps float64 off its Pallas kernels);
+  "cuda"  — the CUDA kernels; raises for tensors on the CPU and for
+            float64 operands;
+  "plain" — the plain torch versions everywhere (tests, chip_smoke.py);
+  "xla"   — the JAX package's chunked segment-sum numeric
+            (_numeric_and_compress: a chunked gather, block_matmul_flat and
+            index_add_), plain torch on every device, as it is XLA outside
+            any Pallas kernel there.
+
+`spgemm_padded(A, B, max_tasks, ...)` runs the whole product with static
+bounds and no host sync: its result is padded (C.nb is the true block
+count as a 0-d tensor; blocks past it have zero bitmaps). The
+multi-device structure-oblivious path (parallel/spgemm.py) runs it per
+shard.
 
 Exactly two host syncs per plan: the task total and the plan packet (the
 reference's two D->H copies, ref :1095,1106). C's structure is the
@@ -63,11 +76,12 @@ from .cuda import compress_kernel as _ck
 from .cuda import spgemm_kernel as _sk
 from .cuda import spgemm_window_kernel as _wk
 from .segsort import sort_by_key
+from .spmv import _use_kernels as _spmv_use_kernels
 
-IMPLS = ("auto", "cuda", "plain")
+IMPLS = ("auto", "cuda", "plain", "xla")
 COMPRESS_MODES = ("auto", "scatter", "fold", "mxu")
 _I32_MAX = 2**31 - 1
-_NOT_PORTED = "ROADMAP queue 1, item {}"
+_NUMERIC_CHUNK = 1 << 16    # tasks per step of the chunked numeric
 
 
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -125,24 +139,24 @@ def _task_counts(a: BmSparse, b: BmSparse, num_b_block_rows: int):
 # T3 + T4 + T5: task list construction, pruning, sort by C key
 # ---------------------------------------------------------------------------
 def _build_tasks(a: BmSparse, b: BmSparse, task_offs, b_row_start,
-                 total: int, num_tasks: int, c_row_sentinel: int):
+                 total, num_tasks: int, c_row_sentinel: int):
     """The (padded) task list sorted by C key, pruned tasks and padding at
     the tail. Returns (a_idx, b_idx, ck_row, ck_col, ph, pl, nz_total):
     task t multiplies A block a_idx[t] by B block b_idx[t] into C block
     (ck_row, ck_col)[t] with structural product bitmap (ph, pl)[t]; dead
-    tasks carry ck_row == sentinel. `total` is the host task count."""
+    tasks carry ck_row == sentinel. `total` is the task count, a 0-d
+    tensor on the operands' device; tasks past num_tasks are cut, as in
+    the JAX package."""
     dev = a.device
     t = torch.arange(num_tasks, device=dev)
     valid = t < total
     nbr_b = b_row_start.shape[0]
     start_per_blk = b_row_start[a.bcol.long().clamp(0, nbr_b - 1)]
-    counts = torch.cat([task_offs[1:] - task_offs[:-1],
-                        total - task_offs[-1:]])
-    # T3: jnp.repeat(..., total_repeat_length=num_tasks) fills the
-    # positions past the counts' sum with the LAST row
-    src = torch.repeat_interleave(
-        torch.arange(a.nb_pad, device=dev), counts, output_size=total)
-    src = torch.cat([src, src.new_full((num_tasks - total,), a.nb_pad - 1)])
+    # T3: task t belongs to the first A block whose task span ends past t;
+    # positions past the total take the LAST block, as the fill of JAX's
+    # jnp.repeat(..., total_repeat_length=num_tasks) does
+    ends = torch.cat([task_offs[1:], total.reshape(1)])
+    src = torch.searchsorted(ends, t, right=True).clamp(max=a.nb_pad - 1)
     a_idx = src
     within = t - task_offs[src]
     b_idx = (start_per_blk[src] + within).clamp(0, b.nb_pad - 1)
@@ -266,6 +280,41 @@ def _c_symbolic_scan(ph, pl, ck_row, ck_col, c_row_sentinel: int,
     if pad:
         c_seg, keys_tbl = c_seg[:nt], keys_tbl[:nt]
     return c_seg, keys_tbl, nbc, csum[-1]
+
+
+def _c_symbolic(ph, pl, ck_row, ck_col, c_row_sentinel: int):
+    """C block keys, bitmaps and offsets from the sorted tasks, in task
+    space (the static-bound path; the plan's _c_symbolic_scan is the host-
+    orchestrated one). Returns (c_seg, cbrow, cbcol, c_hi, c_lo,
+    c_offsets, nbc, nnzc): arrays of the task count's length (an upper
+    bound on C's blocks), padding past nbc with row c_row_sentinel, zero
+    bitmaps and offset max(nnzc - 1, 0); nbc and nnzc 0-d tensors."""
+    nt = ck_row.shape[0]
+    dev = ck_row.device
+    alive = ck_row != c_row_sentinel
+    same = (ck_row[1:] == ck_row[:-1]) & (ck_col[1:] == ck_col[:-1])
+    new = torch.cat([torch.ones(1, dtype=torch.int64, device=dev),
+                     (~same).long()])
+    # dead and padding tasks share the sentinel key and collapse into one
+    # trailing segment, which the block count leaves out
+    c_seg = torch.cumsum(new, 0) - 1
+    nbc = torch.where(alive, c_seg + 1, 0).amax() if nt else c_seg.sum()
+    keys = torch.stack([ck_row, ck_col], dim=1).int()
+    ckeys = keys.new_zeros((nt, 2))
+    ckeys[:, 0] = c_row_sentinel
+    # every task of a segment writes the same key
+    ckeys[c_seg] = keys
+    # C bitmap = OR of the segment's product bitmaps (dead tasks carry zero
+    # bitmaps): a segment sum of the bit planes, then > 0
+    c_bits = torch.zeros((nt, 64), dtype=torch.int32, device=dev).index_add_(
+        0, c_seg, bm.expand_bits(ph, pl)) > 0
+    c_hi, c_lo = bm.pack_bits(c_bits)
+    cnt = c_bits.sum(1)
+    c_off = torch.cumsum(cnt, 0) - cnt
+    nnzc = c_off[-1] + cnt[-1] if nt else cnt.sum()
+    c_off = torch.where(torch.arange(nt, device=dev) < nbc, c_off,
+                        (nnzc - 1).clamp(min=0)).int()
+    return c_seg, ckeys[:, 0], ckeys[:, 1], c_hi, c_lo, c_off, nbc, nnzc
 
 
 # ---------------------------------------------------------------------------
@@ -426,22 +475,50 @@ def _contiguous_k_groups(kc) -> list:
 # Numeric phase and compress
 # ---------------------------------------------------------------------------
 def _use_kernels(impl: str, device: torch.device, dtype) -> bool:
-    """Whether the numeric phase launches the CUDA kernels (see module
-    docstring); raises where they cannot run."""
-    if impl == "xla":
-        raise NotImplementedError(
-            "impl='xla' (the chunked segment-sum numeric of spgemm_padded "
-            "and the multi-device path) is not ported: "
-            + _NOT_PORTED.format(12))
+    """Whether the task-SELL numeric launches the CUDA kernels for
+    operands of `dtype` on `device`: the SpMV rule (ops/spmv.py), for
+    the SpGEMM impls."""
     if impl not in IMPLS:
         raise ValueError(f"unknown SpGEMM impl {impl!r}")
-    kernels = impl == "cuda" or (impl == "auto" and device.type == "cuda")
-    if kernels and device.type != "cuda":
-        raise ValueError("impl='cuda' needs tensors on a CUDA device")
-    if kernels and dtype == torch.float64:
-        raise NotImplementedError(
-            "float64 operands have no CUDA kernel; use impl='plain'")
-    return kernels
+    return _spmv_use_kernels(impl, device, dtype)
+
+
+def _numeric_xla(a_flat, b_flat, a_idx, b_idx, c_seg, num_c_blocks: int):
+    """Chunked 8x8 block products summed per C block (the JAX package's
+    _numeric_xla): per chunk of _NUMERIC_CHUNK tasks, gather the dense
+    tiles, multiply them (block_matmul_flat) and index_add_ into C block
+    c_seg. Segments outside [0, num_c_blocks) drop out. Returns
+    (num_c_blocks, 64) row-major tiles in promote(a dtype, float32)."""
+    from ..format.blockops import block_matmul_flat
+    from .gather import gather_rows
+
+    acc_dt = torch.promote_types(a_flat.dtype, torch.float32)
+    acc = torch.zeros((num_c_blocks + 1, 64), dtype=acc_dt,
+                      device=a_flat.device)
+    for s in range(0, a_idx.shape[0], _NUMERIC_CHUNK):
+        sl = slice(s, s + _NUMERIC_CHUNK)
+        contrib = block_matmul_flat(
+            gather_rows(a_flat, a_idx[sl]), gather_rows(b_flat, b_idx[sl]),
+            b_transposed=False, acc_dtype=acc_dt)
+        seg = c_seg[sl].long()
+        acc.index_add_(0, torch.where((seg >= 0) & (seg < num_c_blocks), seg,
+                                      num_c_blocks), contrib)
+    return acc[:num_c_blocks]
+
+
+def _numeric_and_compress(a_flat, b_flat, a_idx, b_idx, c_seg, c_hi, c_lo,
+                          c_offsets, num_c_blocks: int, num_c_nnz: int):
+    """The chunked numeric, then the compress through C's bitmaps: value
+    slot offsets + prefix popcount of each set bit (the inverse of
+    decompress_blocks); positions at or past num_c_nnz drop out."""
+    c_dense = _numeric_xla(a_flat, b_flat, a_idx, b_idx, c_seg, num_c_blocks)
+    bits = bm.expand_bits(c_hi[:num_c_blocks], c_lo[:num_c_blocks])
+    pos = torch.where(
+        bits > 0,
+        c_offsets[:num_c_blocks, None].long() + bm.prefix_popcount(bits),
+        num_c_nnz).clamp(max=num_c_nnz)
+    out = c_dense.new_zeros(num_c_nnz + 1)
+    return out.scatter_(0, pos.reshape(-1), c_dense.reshape(-1))[:num_c_nnz]
 
 
 def _numeric_products(a_flat, b_flat, launches: tuple, rows: int,
@@ -638,7 +715,7 @@ class _ProductPlan:
     )
 
 
-def _plan_fused(a, b, offs, b_row_start, total: int,
+def _plan_fused(a, b, offs, b_row_start, total,
                 t_pad: int, sentinel: int, nbc_pad: int):
     """T3..T9 on the operands' device, ending in one packed int64 packet
     so that the host needs one fetch for every data-dependent static."""
@@ -805,9 +882,12 @@ def _plan_pallas_windows(groups, amin_c, amax_c, bmin_c, bmax_c,
     return tuple(pwin), tuple(pws), tuple(ws_host), nba_pad, nbb_pad
 
 
-def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
+def _plan_product(a, b, a_prep, b_prep, timer, verbose,
+                  winkernel: str | None = None) -> _ProductPlan:
     """T1-T9 with exactly two host syncs — the task total and the plan
-    packet — plus host-side static planning on the packet."""
+    packet — plus host-side static planning on the packet. winkernel
+    overrides config spgemm_winkernel ("off" for the multi-device plans,
+    parallel/product.py, which derive their own slot tables)."""
     cfg = get_config()
     if cfg.spgemm_compress not in COMPRESS_MODES:
         raise ValueError(f"spgemm_compress must be one of {COMPRESS_MODES}, "
@@ -829,7 +909,7 @@ def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
     with timer.phase("T_3"):
         (packet, keys_tbl, c_seg, a_idx, b_idx,
          starts_sig, cnt_sig, ends_sig, nat_cols, nat_of_sig,
-         sig_cols) = _plan_fused(a, b, offs, b_row_start, p.num_tasks,
+         sig_cols) = _plan_fused(a, b, offs, b_row_start, total,
                                  t_pad, sentinel, p.nbc_pad)
     with timer.phase("T_6"):
         pkt = packet.cpu().numpy()         # host sync 2 of 2 (ref :1106)
@@ -855,7 +935,7 @@ def _plan_product(a, b, a_prep, b_prep, timer, verbose) -> _ProductPlan:
         nb_a, nb_b = p.a_flat.shape[0], p.b_flat.shape[0]
         p.win, p.win_starts = _plan_windows(
             p.groups, amin_c, amax_c, bmin_c, bmax_c, nb_a, nb_b, dev)
-        wk = cfg.spgemm_winkernel
+        wk = winkernel or cfg.spgemm_winkernel
         if wk not in ("auto", "on", "off"):
             raise ValueError(f"unknown spgemm_winkernel {wk!r}")
         p.pwin, p.pws, ws_host, p.nba_pad, p.nbb_pad = _plan_pallas_windows(
@@ -1057,11 +1137,11 @@ def spgemm(a, b, impl: str | None = None,
     A untransposed; B in either intra-block layout (transposed is the
     reference's and the fast one, ref: src/bmSparse_SPGEMM.cu:1261-1262).
     Operands may be BmSparse or Prepared (ops.plan.prepare), both on one
-    device. fp32 output (f64 for f64 operands under impl="plain"). For
-    iterated products with fixed structure use ops.product.prepare_product.
+    device. fp32 output (f64 for f64 operands). For iterated products with
+    fixed structure use ops.product.prepare_product.
 
-    impl: "auto" | "cuda" | "plain" | None (config default); see the
-    module docstring. verbose prints the reference's phase labels.
+    impl: "auto" | "cuda" | "plain" | "xla" | None (config default); see
+    the module docstring. verbose prints the reference's phase labels.
     """
     from .plan import Prepared, as_matrix
 
@@ -1070,7 +1150,8 @@ def spgemm(a, b, impl: str | None = None,
     a, b = as_matrix(a), as_matrix(b)
     _check_operands(a, b)
     cfg = get_config()
-    kernels = _use_kernels(impl or cfg.spgemm_impl, a.device,
+    impl = impl or cfg.spgemm_impl
+    kernels = _use_kernels(impl, a.device,
                            torch.promote_types(a.dtype, b.dtype))
     verbose = cfg.verbose if verbose is None else verbose
     timer = PhaseTimer(enabled=verbose, device=a.device)
@@ -1078,7 +1159,8 @@ def spgemm(a, b, impl: str | None = None,
     p = _plan_product(a, b, a_prep, b_prep, timer, verbose)
 
     with timer.phase("T_9b"):
-        c_values = _numeric_from_plan(p, kernels)
+        c_values = (_numeric_xla_from_plan(p) if impl == "xla"
+                    else _numeric_from_plan(p, kernels))
     timer.report()
     return _assemble_c(p, c_values)
 
@@ -1098,9 +1180,56 @@ def _numeric_from_plan(p: _ProductPlan, kernels: bool, a_flat=None,
         device=a_flat.device)
 
 
+def _numeric_xla_from_plan(p: _ProductPlan):
+    """impl="xla": the chunked numeric over the plan's alive tasks, into
+    C's container fields."""
+    if p.num_alive == 0:
+        return torch.zeros(
+            p.nnz_pad, dtype=torch.promote_types(p.a_flat.dtype,
+                                                 torch.float32),
+            device=p.a_flat.device)
+    n = p.num_alive
+    return _numeric_and_compress(
+        p.a_flat, p.b_flat, p.a_idx[:n], p.b_idx[:n], p.c_seg[:n],
+        p.c_hi, p.c_lo, p.c_off, p.nb_pad_c, p.nnz_pad)
+
+
 def _assemble_c(p: _ProductPlan, c_values) -> BmSparse:
     return BmSparse(
         brow=p.cbrow, bcol=p.cbcol, bmp_hi=p.c_hi, bmp_lo=p.c_lo,
         offsets=p.c_off, values=c_values, nb=p.num_c_blocks,
         num_rows=p.a.num_rows, num_cols=p.b.num_cols, nnz=p.num_c_nnz,
+        transposed=False)
+
+
+def spgemm_padded(a: BmSparse, b: BmSparse, max_tasks: int,
+                  max_c_blocks: int | None = None,
+                  max_c_nnz: int | None = None) -> BmSparse:
+    """C = A @ B with static upper bounds and no host sync.
+
+    The result is padded: C.nb is the true block count (a 0-d tensor) and
+    blocks past it have zero bitmaps; C.nnz is max_c_nnz. Tasks past
+    max_tasks, blocks past max_c_blocks and values past max_c_nnz are cut,
+    so the bounds must hold (parallel/spgemm.py::estimate_bounds gives
+    safe ones). Runs the chunked numeric (_numeric_and_compress), plain
+    torch on every device: the task-SELL kernels need the host planning of
+    spgemm() and prepare_product().
+    """
+    _check_operands(a, b)
+    max_c_blocks = max_c_blocks or max_tasks
+    max_c_nnz = max_c_nnz or max_c_blocks * 64
+    sentinel = a.block_rows + 1
+    _, offs, b_row_start, total = _task_counts(a, b, b.block_rows)
+    a_idx, b_idx, ck_row, ck_col, ph, pl, _ = _build_tasks(
+        a, b, offs, b_row_start, total, max_tasks, sentinel)
+    c_seg, cbrow, cbcol, c_hi, c_lo, c_off, nbc, _ = _c_symbolic(
+        ph, pl, ck_row, ck_col, sentinel)
+    k = min(max_c_blocks, max_tasks)
+    c_values = _numeric_and_compress(
+        a.decompress_blocks_flat(), b.decompress_blocks_flat(),
+        a_idx, b_idx, c_seg, c_hi[:k], c_lo[:k], c_off[:k], k, max_c_nnz)
+    return BmSparse(
+        brow=cbrow[:k], bcol=cbcol[:k], bmp_hi=c_hi[:k], bmp_lo=c_lo[:k],
+        offsets=c_off[:k], values=c_values, nb=nbc,
+        num_rows=a.num_rows, num_cols=b.num_cols, nnz=max_c_nnz,
         transposed=False)

@@ -17,9 +17,13 @@ outside any kernel in the JAX package too, so their gather is the same
 design here, on every device.
 
 impl:
-  "auto"  — the CUDA kernels for tensors on a CUDA device, their plain
-            torch versions for tensors on the CPU;
-  "cuda"  — the CUDA kernels; raises for tensors on the CPU;
+  "auto"  — the CUDA kernels for float32 and bfloat16 plans on a CUDA
+            device, their plain torch versions for tensors on the CPU and
+            for float64 plans (the kernels take float32 and bfloat16 only;
+            the JAX package likewise runs its Pallas kernels for float32
+            only and XLA otherwise);
+  "cuda"  — the CUDA kernels; raises for tensors on the CPU and for
+            float64 plans;
   "plain" — the plain torch versions everywhere (tests, and the
             comparison in chip_smoke.py).
 
@@ -71,7 +75,12 @@ def _spmv_xla(m: BmSparse, v: torch.Tensor) -> torch.Tensor:
         # storage is row-major (SpMV requires untransposed matrices)
         vseg = vpad[m.bcol[sl].long()[:, None] * BLOCK_WIDTH + lane]
         contrib = block_matvec_flat(dense, vseg, acc)            # (c, 8)
-        u.index_add_(0, m.brow[sl].long().clamp(max=nbr), contrib)
+        # rows outside [0, nbr) drop out, as in JAX's segment_sum: the
+        # padding blocks' sentinel, and negative rows where a shard's
+        # padding rows were localized (parallel/spmv.py)
+        brow = m.brow[sl].long()
+        u.index_add_(0, torch.where((brow >= 0) & (brow < nbr), brow, nbr),
+                     contrib)
     return u[:nbr].reshape(-1)[: m.num_rows].to(v.dtype)
 
 
@@ -79,12 +88,7 @@ def _spmv_prepared(p, v: torch.Tensor, impl: str) -> torch.Tensor:
     """Tiered SpMV on a Prepared plan (see ops/plan.py)."""
     m = p.m
     cdt = torch.promote_types(getattr(torch, p.plan_dtype), torch.float32)
-    kernels = impl == "cuda" or (impl == "auto" and v.is_cuda)
-    if kernels and not v.is_cuda:
-        raise ValueError("impl='cuda' needs tensors on a CUDA device")
-    if kernels and cdt == torch.float64:
-        raise NotImplementedError(
-            "float64 plans have no CUDA kernel; use impl='plain'")
+    kernels = _use_kernels(impl, v.device, cdt)
     if v.device != m.device:
         raise ValueError(f"plan on {m.device} but v on {v.device}")
     nbr = m.block_rows
@@ -116,13 +120,35 @@ def _spmv_prepared(p, v: torch.Tensor, impl: str) -> torch.Tensor:
     return u[: m.num_rows].to(v.dtype)
 
 
+def _use_kernels(impl: str, device: torch.device, dtype: torch.dtype) -> bool:
+    """Whether a path launches the CUDA kernels for data of `dtype` on
+    `device` (the rule of the module docstring, SpGEMM's too); raises
+    where impl="cuda" cannot run."""
+    cuda = device.type == "cuda"
+    if impl == "cuda":
+        if not cuda:
+            raise ValueError("impl='cuda' needs tensors on a CUDA device")
+        if dtype == torch.float64:
+            raise NotImplementedError(
+                "float64 has no CUDA kernel; use impl='auto' or 'plain'")
+        return True
+    return impl == "auto" and cuda and dtype != torch.float64
+
+
 def dia_apply(dia: torch.Tensor, offsets: tuple, vpad: torch.Tensor,
-              kernel: bool = False) -> torch.Tensor:
+              kernel: bool = False, col_shift: int = 0) -> torch.Tensor:
     """DIA-tier contribution in the natural (R, 128) layout: element e at
-    [e // 128, e % 128]. `vpad` is the padded vector; columns past its
-    end read zero."""
+    [e // 128, e % 128]. `vpad` is the padded vector; columns outside it
+    read zero.
+
+    col_shift: diagonal offset o of element e reads vpad[e + col_shift +
+    o]. The multi-device path (parallel/spmv.py) keeps a shard's rows
+    local while the offsets are global diagonals and vpad is the global
+    vector or the shard's halo window. A shift past the end of vpad (a
+    tall matrix's late shards) reads zeros, so the JAX package's
+    `max_shift_rows` sizing of a sliced copy has no counterpart here."""
     fn = dia_spmv if kernel else dia_spmv_plain
-    return fn(dia, vpad, offsets)
+    return fn(dia, vpad, offsets, col_shift)
 
 
 def sell_apply(
@@ -134,6 +160,8 @@ def sell_apply(
     sell_ws: tuple = (),
     sell_rel: tuple = (),
     kernel: bool = False,
+    col_base: int | None = None,
+    global_sentinel: int | None = None,
 ) -> torch.Tensor:
     """SELL-tier contribution: (block_rows, 8) row-major.
 
@@ -142,6 +170,12 @@ def sell_apply(
     ncu + 1) table whose last column is zero (the padding slots' column),
     then sums over (window scalar, k). The rows are then placed by the
     out_gather row map (rows with no slots read zero).
+
+    col_base/global_sentinel: the multi-device halo mode. The plan's bcol
+    are global block columns while vpad is a shard's window starting at
+    block column col_base; the plan's padding column global_sentinel maps
+    to the zero column. Groups then gather per slot, as in the JAX
+    package, whose halo mode never takes the windowed kernel.
     """
     cdt = torch.promote_types(sell_dense[0].dtype, torch.float32)
     cw = sell_dense[0].shape[0]
@@ -151,7 +185,8 @@ def sell_apply(
     parts = []
     for g, (dense_g, bcol_g) in enumerate(zip(sell_dense, sell_bcol)):
         cw_g, ch, kg, _, lanes = dense_g.shape
-        if g < len(sell_rel) and sell_rel[g] is not None:
+        if (col_base is None and g < len(sell_rel)
+                and sell_rel[g] is not None):
             win = sell_window if kernel else sell_window_plain
             contrib = win(dense_g, sell_rel[g], sell_ws[g], vpad, cw_g, n)
         else:
@@ -160,7 +195,11 @@ def sell_apply(
                                     device=vpad.device)
                 vflat[:n] = vpad[:n]
                 vtab = vflat.reshape(ncu + 1, cw).T              # (cw, ncu+1)
-            vseg = vtab[:, bcol_g.long()].reshape(cw_g, ch, kg, 1, lanes)
+            idx = bcol_g.long()
+            if col_base is not None:
+                idx = torch.where(idx == global_sentinel, ncu,
+                                  idx - col_base).clamp(0, ncu)
+            vseg = vtab[:, idx].reshape(cw_g, ch, kg, 1, lanes)
             contrib = (dense_g.to(cdt) * vseg).sum(dim=(0, 2))   # (ch, 8, 128)
         parts.append(contrib.transpose(1, 2).reshape(-1, BLOCK_HEIGHT))
     u_rows = torch.cat(parts + [torch.zeros((1, BLOCK_HEIGHT), dtype=cdt,

@@ -17,7 +17,14 @@ the public API —
          converter on stencil2M and road1M, container and plan
          persistence (road1M, web256k), write_matrix_market and both
          parsers, cli.spmv, cli.spgemm and cli.batch on band256k, and the
-         examples cg (n = 2,097,152) and matrix_powers (n = 1,048,576) —
+         examples cg (n = 2,097,152) and matrix_powers (n = 1,048,576);
+  the multi-device path (phase 5, bmsparse_tpu_torch/parallel): an NCCL
+         group of world size 1 runs dryrun_multichip, the sharded tiered
+         SpMV on stencil2M, the sharded product on band2M and the padded
+         SpGEMM on band256k; then every shard of 4-shard plans (stencil2M,
+         a 262,144-row band, band2M) runs in turn on the card, so the DIA
+         kernel sees non-zero column shifts — one card, not a multi-card
+         run —
 checks the results against scipy in float64 and against the plain path on
 the card, shows from the launch counters that each path ran through its
 kernels, times kernel and plain paths with CUDA events beside each
@@ -137,6 +144,18 @@ def profile_text(prof) -> str:
     busy, span = prof
     return (f"device busy {busy!r} ms per call, idle share "
             f"{1 - busy / span!r} of back-to-back calls")
+
+
+def bounded_profile_text(prof, bound_ms: float) -> str:
+    """profile_text of a kernel whose least time is bound_ms: a trace with
+    no device activity, or with less busy time than the bound allows,
+    prints as a broken trace and not as a time."""
+    if prof is not None and prof[0] >= bound_ms:
+        return profile_text(prof)
+    got = ("no device activity" if prof is None
+           else f"busy {prof[0]!r} ms per call")
+    return (f"broken trace ({got}, bound {bound_ms!r} ms): device time not "
+            f"measured")
 
 
 def max_abs(a, b) -> float:
@@ -1597,6 +1616,272 @@ def phase4_surfaces(torch):
     print(f"phase4 seconds: {time.perf_counter() - t0:.1f}")
 
 
+def same_structure(torch, c, c_ref, what: str) -> float:
+    """C's blocks and bitmaps equal c_ref's exactly; returns the values'
+    max|dC| / max|C|."""
+    nb, nnz = int(c.nb), int(c.nnz)
+    check(nb == int(c_ref.nb) and nnz == int(c_ref.nnz),
+          f"{what}: block count or nnz differs ({nb}, {nnz} vs "
+          f"{int(c_ref.nb)}, {int(c_ref.nnz)})")
+    for f in ("brow", "bcol", "bmp_hi", "bmp_lo", "offsets"):
+        check(torch.equal(getattr(c, f)[:nb], getattr(c_ref, f)[:nb]),
+              f"{what}: C.{f} differs")
+    ref = c_ref.values[:nnz].double()
+    return float((c.values[:nnz].double() - ref).abs().max()
+                 / max(float(ref.abs().max()), 1e-30))
+
+
+def phase5_spmv_shards(torch, name, m, v, errs, card):
+    """Every shard of a 4-shard plan of m, in turn on this one card: the
+    DIA kernel at the shard's column shift against its plain twin, and
+    the shards' rows against scipy. Returns the shifts it ran."""
+    from bmsparse_tpu_torch.ops.cuda.spmv_kernel import (
+        dia_spmv, dia_spmv_plain,
+    )
+    from bmsparse_tpu_torch.parallel.partition import partition
+    from bmsparse_tpu_torch.parallel.plan import prepare_sharded
+    from bmsparse_tpu_torch.parallel.spmv import (
+        local_spmv_prepared, shard_geometry, shard_window,
+    )
+
+    t0 = time.perf_counter()
+    sp = prepare_sharded(partition(m, 4, align=16))
+    t_prep = time.perf_counter() - t0
+    ref = m.to_scipy() @ v.cpu().double().numpy()
+    shifts = []
+    for ex in ("halo", "allgather") if sp.halo is not None else ("allgather",):
+        parts = []
+        for s in range(4):
+            vpad = shard_window(sp, v, s, ex)
+            shift = shard_geometry(sp, s, vpad.shape[0], ex)[0]
+            check(bool(sp.dia_offsets), f"{name}: no DIA tier in the shards")
+            got = dia_spmv(sp.dia[s], vpad, sp.dia_offsets, shift)
+            want = dia_spmv_plain(sp.dia[s], vpad, sp.dia_offsets, shift)
+            torch.testing.assert_close(got, want, **TOL)
+            errs["dia_spmv"] = max(errs["dia_spmv"], max_abs(got, want))
+            shifts.append(shift)
+            parts.append(local_spmv_prepared(sp, s, vpad, ex, kernels=True))
+        u = torch.cat(parts)[:m.num_rows]
+        rel = float(np.abs(u.cpu().double().numpy() - ref).max()
+                    / max(np.abs(ref).max(), 1e-30))
+        print(f"phase5 {name} 4 shards in turn, exchange {ex!r} (halo "
+              f"{sp.halo}): dia_spmv shifts {shifts[-4:]}, kernel vs plain "
+              f"max_abs_err {errs['dia_spmv']!r}, max|u-ref|/max|ref| vs "
+              f"scipy float64 = {rel!r} [{card}]")
+        check(rel <= ORACLE_REL, f"{name} 4 shards: error {rel} vs scipy")
+    print(f"phase5 {name}: prepare_sharded(4 shards) {t_prep!r} s (host) "
+          f"[{card}]")
+    return sp, shifts
+
+
+def phase5_multidevice(torch, stencil, band, card):
+    """The multi-device path (bmsparse_tpu_torch/parallel) on this one
+    card: an NCCL group of world size 1 drives the user entry points
+    (dry run, stencil2M sharded SpMV, band2M sharded product, band256k
+    padded SpGEMM); every shard of 4-shard plans then runs in turn on the
+    card, so the kernels see non-zero shifts and the exchanged operand
+    tables at full size. Returns the main path's launches and the kernels'
+    errors against their plain twins."""
+    import torch.distributed as dist
+
+    import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import numeric_sell
+    from bmsparse_tpu_torch.ops.cuda.spmv_kernel import dia_spmv
+    from bmsparse_tpu_torch.parallel.dryrun import (
+        big_band, dryrun_multichip,
+    )
+    from bmsparse_tpu_torch.parallel.launch import init_group
+    from bmsparse_tpu_torch.parallel.partition import (
+        ShardedBmSparse, partition,
+    )
+    from bmsparse_tpu_torch.parallel.plan import prepare_sharded
+    from bmsparse_tpu_torch.parallel.product import (
+        local_multiply, prepare_sharded_product, shard_b_needed,
+        sharded_multiply,
+    )
+    from bmsparse_tpu_torch.parallel.spgemm import (
+        estimate_bounds, sharded_spgemm,
+    )
+    from bmsparse_tpu_torch.parallel.spmv import (
+        shard_geometry, shard_window, sharded_spmv_prepared,
+    )
+    from bmsparse_tpu_torch.utils.testmats import make_banded
+
+    t_phase = time.perf_counter()
+    launches = {"dia_spmv": 0, "numeric_sell": 0}
+    errs = {"dia_spmv": 0.0, "numeric_sell": 0.0}
+    mesh = init_group(0, 1, "cuda")
+    try:
+        print(f"phase5 process group: backend {dist.get_backend()}, world "
+              f"{mesh.size}, rank {mesh.rank}, {mesh.device} (loopback TCP "
+              "rendezvous). One card: the exchanges run over NCCL with no "
+              "peer, and the 4-shard runs below take their shards in turn "
+              "on this card; none of this is a multi-card run.")
+
+        dia_spmv.launches = numeric_sell.launches = 0
+        t0 = time.perf_counter()
+        dr = dryrun_multichip(1, "cuda")
+        torch.cuda.synchronize()
+        print(f"phase5 dryrun_multichip(1, 'cuda'): "
+              f"{time.perf_counter() - t0:.1f} s; launches dia_spmv "
+              f"{dia_spmv.launches}, numeric_sell {numeric_sell.launches} "
+              f"[{card}]")
+        check(dia_spmv.launches > 0 and numeric_sell.launches > 0,
+              "dry run: a kernel was not launched")
+
+        # ---- stencil2M: the sharded tiered SpMV --------------------------
+        m, p, v = stencil
+        v_np = v.cpu().double().numpy()
+        t0 = time.perf_counter()
+        sp = prepare_sharded(partition(m, 1, align=16))
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t0
+        dia_spmv.launches = 0
+        u = sharded_spmv_prepared(sp, v, mesh)
+        torch.cuda.synchronize()
+        launches["dia_spmv"] += dia_spmv.launches
+        ex = "halo" if sp.halo is not None else "allgather"
+        vpad = shard_window(sp, v, 0, ex)
+        shift = shard_geometry(sp, 0, vpad.shape[0], ex)[0]
+        print(f"phase5 stencil2M sharded_spmv_prepared (world 1): "
+              f"partition + prepare_sharded {t_prep!r} s (host); ndiags "
+              f"{len(sp.dia_offsets)}, sell_ks {sp.sell_ks}, halo {sp.halo}, "
+              f"exchange {ex!r}, dia_spmv shift {shift}, launches dia_spmv "
+              f"{dia_spmv.launches} [{card}]")
+        check(dia_spmv.launches > 0, "stencil2M: dia_spmv not launched")
+        ref = m.to_scipy() @ v_np
+        rel = float(np.abs(u.cpu().double().numpy() - ref).max()
+                    / max(np.abs(ref).max(), 1e-30))
+        u1 = bt.spmv(p, v)
+        torch.testing.assert_close(u, u1, **TOL)
+        u_ag = sharded_spmv_prepared(sp, v, mesh, exchange="allgather")
+        torch.testing.assert_close(u_ag, u1, **TOL)
+        print(f"phase5 stencil2M: max|u-ref|/max|ref| vs scipy float64 = "
+              f"{rel!r}; vs single-device spmv max_abs_err "
+              f"{max_abs(u, u1)!r} (halo), {max_abs(u_ag, u1)!r} "
+              f"(allgather) [{card}]")
+        check(rel <= ORACLE_REL, f"stencil2M sharded: error {rel} vs scipy")
+
+        # ---- band2M: the sharded product ---------------------------------
+        a, b, _, pp = band
+        t0 = time.perf_counter()
+        spp = prepare_sharded_product(partition(a, 1, align=16),
+                                      partition(b, 1, align=16))
+        torch.cuda.synchronize()
+        t_pp = time.perf_counter() - t0
+        numeric_sell.launches = 0
+        cs = sharded_multiply(spp, mesh)
+        torch.cuda.synchronize()
+        launches["numeric_sell"] += numeric_sell.launches
+        check(numeric_sell.launches == 1,
+              f"band2M: numeric_sell launched {numeric_sell.launches} times")
+        c1 = pp()
+        rel = same_structure(torch, cs.to_bmsparse(), c1, "band2M sharded")
+        print(f"phase5 band2M sharded_multiply (world 1): partition + "
+              f"prepare_sharded_product {t_pp!r} s (host, plan_seconds "
+              f"{spp.plan_seconds!r}); K-groups {list(zip(spp.ks, spp.caps))}"
+              f", exchange {spp.exchange!r}, launches numeric_sell "
+              f"{numeric_sell.launches}; C structure equal to pp()'s, nnz(C) "
+              f"{c1.nnz}, values max|dC|/max|C| {rel!r} [{card}]")
+        check(rel <= 1e-5, f"band2M sharded: values differ by {rel}")
+
+        # ---- band256k: the padded SpGEMM (plain torch) -------------------
+        n = 262_144
+        r, c, vals = make_banded(n, 16, seed=2)
+        a256 = bt.coo_to_bmsparse(r, c, vals, (n, n), device="cuda")
+        b256 = bt.coo_to_bmsparse(r, c, vals, (n, n), transposed=True,
+                                  device="cuda")
+        sa, sb = partition(a256, 1), partition(b256, 1)
+        bounds = estimate_bounds(sa, sb)
+        t0 = time.perf_counter()
+        cpad = sharded_spgemm(sa, sb, mesh, **bounds)
+        torch.cuda.synchronize()
+        t_pad = time.perf_counter() - t0
+        rel = same_structure(torch, cpad.to_bmsparse(), bt.spgemm(a256, b256),
+                             "band256k sharded_spgemm")
+        print(f"phase5 band256k sharded_spgemm (padded, plain torch, world "
+              f"1): bounds {bounds}, {t_pad!r} s (host clock, one call); C "
+              f"structure equal to spgemm()'s, values max|dC|/max|C| {rel!r} "
+              f"[{card}]")
+        check(rel <= 1e-5, f"band256k padded: values differ by {rel}")
+        del cpad, a256, b256, sa, sb
+
+        # ---- every shard of 4-shard plans, in turn -----------------------
+        sp4, sh1 = phase5_spmv_shards(torch, "stencil2M", m, v, errs,
+                                     card)
+        big, vbig = big_band("cuda")
+        _, sh2 = phase5_spmv_shards(torch, "band262k", big, vbig, errs, card)
+        check(any(x != 0 for x in sh1 + sh2), "no non-zero DIA shift ran")
+        t0 = time.perf_counter()
+        spp4 = prepare_sharded_product(partition(a, 4, align=16),
+                                       partition(b, 4, align=16))
+        torch.cuda.synchronize()
+        t_pp4 = time.perf_counter() - t0
+        vals4 = []
+        for s in range(4):
+            bn = shard_b_needed(spp4, s)
+            got = local_multiply(spp4, s, bn, kernels=True)
+            want = local_multiply(spp4, s, bn, kernels=False)
+            torch.testing.assert_close(got, want, **TOL)
+            errs["numeric_sell"] = max(errs["numeric_sell"],
+                                       max_abs(got, want))
+            vals4.append(got)
+        c4 = ShardedBmSparse(
+            brow=spp4.cbrow, bcol=spp4.cbcol, bmp_hi=spp4.c_hi,
+            bmp_lo=spp4.c_lo, offsets=spp4.c_offsets,
+            values=torch.stack(vals4), nb=spp4.c_nb,
+            num_rows=spp4.num_rows, num_cols=spp4.num_cols, nnz=-1,
+            rows_per_shard=spp4.rows_per_shard).to_bmsparse()
+        rel = same_structure(torch, c4, c1, "band2M 4 shards")
+        print(f"phase5 band2M 4 shards in turn: prepare_sharded_product "
+              f"{t_pp4!r} s (host); exchange {spp4.exchange!r}, max_send "
+              f"{spp4.max_send}, plan-time bytes per multiply: selective "
+              f"{spp4.comm_bytes_selective}, useful "
+              f"{spp4.comm_bytes_useful}, all-gather "
+              f"{spp4.comm_bytes_allgather} (counted, not measured); "
+              f"numeric_sell vs plain max_abs_err {errs['numeric_sell']!r};"
+              f" C structure equal to pp()'s, values max|dC|/max|C| {rel!r} "
+              f"[{card}]")
+        check(rel <= 1e-5, f"band2M 4 shards: values differ by {rel}")
+        del c4, vals4, spp4
+
+        # ---- times --------------------------------------------------------
+        dia_cases = [
+            ("stencil2M single-device, shift 0", p.dia, v, p.dia_offsets, 0),
+            (f"stencil2M world 1, shift {shift}", sp.dia[0], vpad,
+             sp.dia_offsets, shift)]
+        vpad1 = shard_window(sp4, v, 1)
+        shift1 = shard_geometry(sp4, 1, vpad1.shape[0],
+                                "halo" if sp4.halo is not None
+                                else "allgather")[0]
+        dia_cases.append((f"stencil2M shard 1 of 4, shift {shift1}",
+                          sp4.dia[1], vpad1, sp4.dia_offsets, shift1))
+        for what, dia, vv, offs, sh in dia_cases:
+            t_k = median_ms(lambda: dia_spmv(dia, vv, offs, sh), torch)
+            prof = device_profile(lambda: dia_spmv(dia, vv, offs, sh), torch)
+            bnd = bound(nbytes(dia, vv) + dia.shape[1] * 128 * 4,
+                        2 * dia.numel())[0]
+            print(f"phase5 dia_spmv {what} {tuple(dia.shape)}: event "
+                  f"{t_k!r} ms, {bounded_profile_text(prof, bnd)} [{card}]")
+        for what, fn in (("sharded_spmv_prepared world 1",
+                          lambda: sharded_spmv_prepared(sp, v, mesh)),
+                         ("single-device spmv", lambda: bt.spmv(p, v)),
+                         ("sharded_multiply world 1",
+                          lambda: sharded_multiply(spp, mesh)),
+                         ("single-device pp()", pp)):
+            t = median_ms(fn, torch)
+            prof = device_profile(fn, torch)
+            print(f"phase5 {what}: event {t!r} ms, {profile_text(prof)} "
+                  f"[{card}]")
+        print(f"phase5 host seconds [{card}]: prepare_sharded stencil2M "
+              f"world 1 {t_prep!r}, prepare_sharded_product band2M world 1 "
+              f"{t_pp!r}, 4 shards {t_pp4!r}")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase5 seconds: {time.perf_counter() - t_phase:.1f} [{card}]")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -1648,15 +1933,24 @@ def main() -> int:
     errs.update(compress_errs)
     check(len(launches) == 7 and all(n > 0 for n in launches.values()),
           f"a kernel of the paths was not launched: {launches}")
+    stencil = runs["stencil2M"]
     times = phase3_times(torch, runs, card)
     del runs
     times += phase3_stream_times(torch, stream_runs, auto_runs, card)
     del stream_runs, auto_runs
     times += phase3_spgemm_times(torch, spgemm_runs, card)
     times += phase3_compress_times(torch, compress_runs, spgemm_runs, card)
+    band = spgemm_runs["band2M"]
     del compress_runs, spgemm_runs
     torch.cuda.empty_cache()
     phase4_surfaces(torch)
+    multi_launches, multi_errs = phase5_multidevice(torch, stencil, band,
+                                                    card)
+    del stencil, band
+    print(f"phase5 launches on the multi-device paths: {multi_launches}")
+    for k, n in multi_launches.items():
+        launches[k] += n
+        errs[k] = max(errs[k], multi_errs[k])
 
     replaces = {
         "dia_spmv": ("bmsparse_tpu_torch/csrc/dia_spmv.cu",

@@ -4,7 +4,7 @@ On the CPU each wrapper (dia_spmv, sell_window) runs its plain torch
 version, which is held against the Pallas kernel in interpret mode on the
 same inputs: offsets beyond one 128-lane row in both directions, window
 widths cw 8 and 64, k-groups deeper than the TPU kernel's k-slice, float32
-and bfloat16. Tolerance rtol = atol = 1e-5: only the order of the float32
+and bfloat16, and the DIA kernel's column shift (the multi-device path's). Tolerance rtol = atol = 1e-5: only the order of the float32
 sums differs.
 
 The cases marked `gpu` hold the CUDA kernels against the plain versions on
@@ -164,6 +164,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                     *args[1:], 8, n)
 
 
+@pytest.mark.parametrize("shift", [128, 256, -384])
+def test_dia_shift_matches_pallas(ref, shift):
+    """The shift against the JAX DIA path at col_shift (Pallas, interpret
+    mode): the same reads of v."""
+    offs = DIA_OFFSETS["far"]
+    dia, v = _dia_inputs(offs)
+    jnp = ref.jnp
+    want = np.asarray(ref.dia_apply(
+        jnp.asarray(dia), offs, jnp.asarray(v), v.shape[0],
+        dia_impl="pallas", col_shift=jnp.int32(max(shift, 0))))
+    if shift < 0:
+        # JAX slices v from row col_shift // 128 and cannot start before
+        # it; shifting the offsets instead gives the same reads
+        want = np.asarray(ref.dia_apply(
+            jnp.asarray(dia), tuple(o + shift for o in offs), jnp.asarray(v),
+            v.shape[0], dia_impl="pallas"))
+    got = dia_spmv(_t(dia), _t(v), offs, shift)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_plain_versions_do_not_count_launches():
     dia, v = _dia_inputs((0, 1))
     before = (dia_spmv.launches, sell_window.launches)
@@ -190,6 +210,25 @@ def test_dia_kernel_on_card(cuda, offsets, dtype):
     assert dia_spmv.launches == before + 1
     want = dia_spmv_plain(dia_t, v_t, offs)
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offsets", sorted(DIA_OFFSETS))
+@pytest.mark.parametrize("shift", [384, -256, 131_072])
+def test_dia_kernel_shift_on_card(cuda, offsets, shift):
+    """A shard's column shift (parallel/spmv.py): a non-zero one, and a
+    tall one whose reads all lie past the end of v."""
+    offs = DIA_OFFSETS[offsets]
+    dia, v = _dia_inputs(offs, r_rows=1000, n=127_777)
+    dia_t, v_t = _t(dia).to(cuda), _t(v).to(cuda)
+    before = dia_spmv.launches
+    got = dia_spmv(dia_t, v_t, offs, shift)
+    torch.cuda.synchronize()
+    assert dia_spmv.launches == before + 1
+    want = dia_spmv_plain(dia_t, v_t, offs, shift)
+    torch.testing.assert_close(got, want, **TOL)
+    if shift == 131_072:
+        assert not want.any()
 
 
 @pytest.mark.gpu

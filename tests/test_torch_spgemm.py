@@ -446,8 +446,10 @@ def test_float64_runs_plain():
 
 def test_errors_and_what_is_not_ported():
     _, _, at, btm, _ = _operands("random24")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        bt.spgemm(at, btm, impl="xla")
+    # impl="xla" (the chunked numeric) is ported: same C as the default
+    c_xla, c = bt.spgemm(at, btm, impl="xla"), bt.spgemm(at, btm)
+    assert torch.equal(c_xla.bmp_hi, c.bmp_hi) and c_xla.nnz == c.nnz
+    torch.testing.assert_close(c_xla.values, c.values, **PARITY)
     with pytest.raises(ValueError, match="CUDA"):
         bt.spgemm(at, btm, impl="cuda")
     with pytest.raises(ValueError, match="impl"):

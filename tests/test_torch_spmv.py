@@ -219,6 +219,10 @@ def test_port_imports_no_jax():
         "import bmsparse_tpu_torch.cli.spgemm, bmsparse_tpu_torch.cli.batch\n"
         "import bmsparse_tpu_torch.examples.cg\n"
         "import bmsparse_tpu_torch.examples.matrix_powers\n"
+        "import bmsparse_tpu_torch.parallel.mesh, bmsparse_tpu_torch.parallel.launch\n"
+        "import bmsparse_tpu_torch.parallel.partition, bmsparse_tpu_torch.parallel.plan\n"
+        "import bmsparse_tpu_torch.parallel.spmv, bmsparse_tpu_torch.parallel.spgemm\n"
+        "import bmsparse_tpu_torch.parallel.product, bmsparse_tpu_torch.parallel.dryrun\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bmsparse_tpu' or m.startswith('bmsparse_tpu.')]\n"
         "assert not bad, bad\n"

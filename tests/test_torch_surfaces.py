@@ -1,6 +1,8 @@
 """The port's user surfaces on the card: the device converter against the
 host converter, container and plan persistence onto the card, CSR and
-csr_spmv, and the SpGEMM CLI with --device cuda. Every case is marked
+csr_spmv, the SpMV and SpGEMM CLIs with --device cuda (float64 too, which
+impl="auto" runs on the plain path), and float64 plans and operands under
+impl="auto" and "cuda". Every case is marked
 `gpu` and skips without a CUDA device; they import no JAX, so they run on
 a machine without it:
     python -m pytest tests/test_torch_surfaces.py --noconftest -m gpu
@@ -87,7 +89,7 @@ def test_csr_spmv_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float64"])
 def test_cli_spgemm_on_card(cuda, dtype):
     from bmsparse_tpu_torch.cli.spgemm import main
 
@@ -98,3 +100,39 @@ def test_cli_spgemm_on_card(cuda, dtype):
     assert rc == 0
     assert "C blocks: 9" in out and "C nnz: 255" in out
     assert float(re.search(r"Final: (\S+)", out).group(1)) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["auto", "plain"])
+def test_cli_spmv_float64_on_card(cuda, impl):
+    """float64 under impl="auto" runs the plain path on the card (the
+    kernels take float32 and bfloat16), as the JAX package runs XLA."""
+    from bmsparse_tpu_torch.cli.spmv import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main([DATA, "A_matrix", "--check", "--dtype", "float64",
+                   "--impl", impl])
+    assert rc == 0
+    assert float(re.search(r"Final: (\S+)", buf.getvalue()).group(1)) < 1e-12
+
+
+@pytest.mark.gpu
+def test_float64_auto_plain_and_cuda_raises_on_card(cuda):
+    r, c, v, shape = _road()
+    m = bt.coo_to_bmsparse(r, c, v.astype(np.float64), shape, device=cuda)
+    p = bt.prepare(m)
+    x = torch.ones(shape[1], dtype=torch.float64, device=cuda)
+    ref = m.to_scipy() @ np.ones(shape[1])
+    np.testing.assert_allclose(bt.spmv(p, x).cpu().numpy(), ref, rtol=1e-12,
+                               atol=1e-12)
+    with pytest.raises(NotImplementedError, match="float64"):
+        bt.spmv(p, x, impl="cuda")
+    mt = bt.coo_to_bmsparse(r, c, v.astype(np.float64), shape,
+                            transposed=True, device=cuda)
+    cm = bt.spgemm(m, mt)
+    assert cm.values.dtype == torch.float64
+    assert bt.mean_relative_error(cm, (m.to_scipy() @ mt.to_scipy()).tocsr()
+                                  ) < 1e-12
+    with pytest.raises(NotImplementedError, match="float64"):
+        bt.spgemm(m, mt, impl="cuda")
