@@ -16,7 +16,8 @@ Public API:
 
 Kernels (csrc/, built with nvcc at first use on a CUDA device):
     dia_spmv     (ops/cuda/spmv_kernel.py) — the DIA tier
-    sell_window  (ops/cuda/sell_kernel.py) — windowed SELL groups
+    sell_window  (ops/cuda/sell_kernel.py) — windowed SELL groups, from
+                 their packs (SellPack)
     numeric_sell (ops/cuda/spgemm_kernel.py) — SpGEMM task-SELL products
     numeric_window (ops/cuda/spgemm_window_kernel.py) — SpGEMM products
                  of K-groups with tile windows

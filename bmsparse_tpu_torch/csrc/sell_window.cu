@@ -1,4 +1,4 @@
-// Windowed SELL-group SpMV for Hopper (sm_90a).
+// Windowed SELL-group SpMV for Hopper (sm_90a), from the group's pack.
 //
 // Replaces: bmsparse_tpu/ops/pallas/sell_kernel.py, sell_window_group
 // (kernel body _sell_window_kernel), the TPU kernel of the plan's windowed
@@ -6,35 +6,32 @@
 //
 // Computes one K-group's contribution, out (cap, 8, 128) float32:
 //     out[c, i, l] = sum_k sum_w dense[w, c, k, i, l] * v[(ws[c] + rel[c, k, l]) * cw + w]
-// with v read as 0 at or past n. dense is (cw, cap, kg, 8, 128) float32 or
-// bfloat16 (converted to float32 in registers), rel (cap, kg, 128) int32 in
-// [0, 256), ws (cap,) int32 window starts in column units. Padding slots
-// carry rel = 0 and dense = 0, so they need no mask.
+// with v read as 0 at or past n, from the group's SellPack
+// (ops/cuda/sell_kernel.py), built once per matrix: each nonzero of the
+// slab once, its value (float32, or bfloat16 converted to float32 in
+// registers) and its column relative to the chunk's window start
+// ws[c] * cw in 16 bits, laid out SELL-32. A slice is 32 output rows of
+// one chunk (rows sorted by length inside the chunk; `rows` maps a
+// position back to its row), padded to its longest row, and holds entry j
+// of its row t at slice_off[s] + (j / G) * 32 * G + t * G + j % G, with
+// G = 4 where the slice's length is a multiple of 4, else 2 where it is
+// even, else 1. Padding entries hold value 0 and column 0.
 //
-// What bounds it on the H100: device-memory bytes. Every coefficient of the
-// dense slab is read once for one FMA (0.5 FLOP per f32 byte), and the slab
-// is most of the traffic (cw * 8 coefficients per slot against one rel
-// index). The v entries a chunk touches all lie in one window of
-// 256 column units, at most 256 * 64 * 4 B = 64 KB.
+// What bounds it on the H100: device-memory bytes of the pack (6 bytes per
+// entry in float32, 4 in bfloat16) and of the output (4 bytes per row),
+// one FMA per entry. The TPU layout's dense (cw * 8, 128) slot tiles,
+// 97.5% zeros at road1M, are not read at all. v is read through __ldg,
+// uncached in shared memory: a chunk's entries touch a few hundred of its
+// window's 256 * cw scalars, and all of v (4.2 MB at road1M) stays in the
+// 50 MB L2, so staging a whole 64 KB window per chunk in shared memory
+// would move more bytes out of L2 than the nonzeros themselves.
 //
-// Design: one thread block per chunk c, one thread per (i, lane), 1024
-// threads. The block first stages its chunk's window
-// v[ws[c]*cw, (ws[c]+256)*cw) in shared memory with coalesced loads,
-// zero past n; then each thread walks k and w, reading dense coalesced
-// along the lane and v from shared memory. The window is stored
-// transposed, win[w][u] with a row pitch of 257 words: for a fixed w the 32
-// lanes of a warp read win[w][rel] at scattered rel, which then spreads
-// over the banks ((w + rel) mod 32) instead of all hitting bank w mod 32 as
-// the natural u-major layout would at cw = 64; the odd pitch also keeps the
-// staging stores free of conflicts. At cw = 64 the window is 65,792 bytes,
-// above the 48 KB default, so the launch raises the kernel's dynamic
-// shared-memory limit first.
-//
-// On the TPU, v was first transposed into a (cw, ncu_pad) table that the
-// kernel fetched by double-buffered DMA, and each slot's segment was
-// picked by quarter-select lane shuffles over a k-sliced grid: workarounds
-// for VMEM and the vector unit that have no counterpart here. The kernel
-// reads the flat v directly: vtab[w, u] on the TPU is v[u * cw + w].
+// Design: one warp per slice, one thread per row, 8 warps per block; the
+// grid covers every slice (road1M: 31,936 warps over 132 SMs). A thread
+// walks its row G entries at a time with one vector load of values
+// (16, 8 or 4 bytes in float32) and one of columns, so the warp's loads of
+// a step are contiguous; it accumulates in float32 in entry order and
+// writes its row of out once, every row of every chunk included.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,107 +40,158 @@
 
 namespace {
 
-constexpr int kWindow = 256;         // WINDOW_UNITS of the planner
-constexpr int kPitch = kWindow + 1;  // words per row of the staged window
-constexpr int kRows = 8;
-constexpr int kLanes = 128;
-constexpr int kThreads = kRows * kLanes;
-constexpr int kMaxSmem = 232448;     // per-block limit on sm_90
+constexpr int kSlice = 32;          // rows per slice: one warp
+constexpr int kChunkRows = 8 * 128;
+constexpr int kSlicesPerChunk = kChunkRows / kSlice;
+constexpr int kWarps = 8;           // slices per block
+constexpr int kThreads = kWarps * kSlice;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float vat(const float* __restrict__ v, int64_t g,
+                                     int64_t n) {
+  return g < n ? __ldg(v + g) : 0.f;
 }
 
-// CW > 0 fixes the window width at compile time (8 and 64, the planner's
-// slot widths); CW == 0 takes it at run time.
-template <typename T, int CW>
-__global__ void __launch_bounds__(kThreads)
-    sell_window_kernel(const T* __restrict__ dense,
-                       const int* __restrict__ rel,
-                       const int* __restrict__ ws,
-                       const float* __restrict__ v, int64_t cap, int kg,
-                       int cw_rt, int64_t n, float* __restrict__ out) {
-  extern __shared__ float win[];  // [cw][kPitch]
-  const int cw = CW > 0 ? CW : cw_rt;
-  const int64_t c = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int i = tid / kLanes;
-  const int lane = tid % kLanes;
+__device__ __forceinline__ float2 bf2(unsigned u) {
+  __nv_bfloat162 b;
+  b.x = __ushort_as_bfloat16(static_cast<unsigned short>(u & 0xffffu));
+  b.y = __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16));
+  return __bfloat1622float2(b);
+}
 
-  const int64_t base = static_cast<int64_t>(__ldg(ws + c)) * cw;
-  for (int idx = tid; idx < kWindow * cw; idx += kThreads) {
-    const int u = idx / cw;
-    const int w = idx - u * cw;
-    const int64_t g = base + idx;
-    win[w * kPitch + u] = g < n ? __ldg(v + g) : 0.f;
+// G entries at index e (a multiple of G): columns, then values as float.
+template <int G>
+__device__ __forceinline__ void load_cols(const int16_t* __restrict__ cols,
+                                          int64_t e, unsigned (&col)[G]) {
+  if constexpr (G == 4) {
+    const uint2 c = __ldg(reinterpret_cast<const uint2*>(cols + e));
+    col[0] = c.x & 0xffffu, col[1] = c.x >> 16;
+    col[2] = c.y & 0xffffu, col[3] = c.y >> 16;
+  } else if constexpr (G == 2) {
+    const unsigned c = __ldg(reinterpret_cast<const unsigned*>(cols + e));
+    col[0] = c & 0xffffu, col[1] = c >> 16;
+  } else {
+    col[0] = __ldg(reinterpret_cast<const unsigned short*>(cols + e));
   }
-  __syncthreads();
+}
 
-  const int64_t w_stride = cap * kg * kRows * kLanes;
-  const T* dp = dense + ((c * kg) * kRows + i) * kLanes + lane;
-  const int* rp = rel + c * kg * kLanes + lane;
+template <int G>
+__device__ __forceinline__ void load_vals(const float* __restrict__ vals,
+                                          int64_t e, float (&a)[G]) {
+  if constexpr (G == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(vals + e));
+    a[0] = x.x, a[1] = x.y, a[2] = x.z, a[3] = x.w;
+  } else if constexpr (G == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(vals + e));
+    a[0] = x.x, a[1] = x.y;
+  } else {
+    a[0] = __ldg(vals + e);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void load_vals(
+    const __nv_bfloat16* __restrict__ vals, int64_t e, float (&a)[G]) {
+  if constexpr (G == 4) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(vals + e));
+    const float2 lo = bf2(x.x), hi = bf2(x.y);
+    a[0] = lo.x, a[1] = lo.y, a[2] = hi.x, a[3] = hi.y;
+  } else if constexpr (G == 2) {
+    const float2 x = bf2(__ldg(reinterpret_cast<const unsigned*>(vals + e)));
+    a[0] = x.x, a[1] = x.y;
+  } else {
+    a[0] = __bfloat162float(__ushort_as_bfloat16(
+        __ldg(reinterpret_cast<const unsigned short*>(vals + e))));
+  }
+}
+
+// The row of slice thread t: `steps` steps of G entries from e0 on.
+template <int G, typename T>
+__device__ __forceinline__ float row_sum(const T* __restrict__ vals,
+                                         const int16_t* __restrict__ cols,
+                                         const float* __restrict__ v,
+                                         int64_t e0, int steps, int64_t base,
+                                         int64_t n) {
   float acc = 0.f;
-  for (int k = 0; k < kg; ++k) {
-    const int r = __ldg(rp + static_cast<int64_t>(k) * kLanes);
-    const T* dk = dp + static_cast<int64_t>(k) * kRows * kLanes;
-#pragma unroll 8
-    for (int w = 0; w < cw; ++w) {
-      acc = fmaf(to_f32(dk[w * w_stride]), win[w * kPitch + r], acc);
+#pragma unroll 2
+  for (int q = 0; q < steps; ++q) {
+    const int64_t e = e0 + static_cast<int64_t>(q) * kSlice * G;
+    unsigned col[G];
+    float a[G];
+    load_cols<G>(cols, e, col);
+    load_vals<G>(vals, e, a);
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      acc = fmaf(a[m], vat(v, base + col[m], n), acc);
     }
   }
-  out[(c * kRows + i) * kLanes + lane] = acc;
-}
-
-template <typename T, int CW>
-cudaError_t launch(const void* dense, const int* rel, const int* ws,
-                   const float* v, int64_t cap, int kg, int cw, int64_t n,
-                   float* out, cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(cw) * kPitch * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sell_window_kernel<T, CW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  sell_window_kernel<T, CW><<<static_cast<unsigned>(cap), kThreads, smem, s>>>(
-      static_cast<const T*>(dense), rel, ws, v, cap, kg, cw, n, out);
-  return cudaGetLastError();
+  return acc;
 }
 
 template <typename T>
-cudaError_t dispatch_cw(const void* dense, const int* rel, const int* ws,
-                        const float* v, int64_t cap, int kg, int cw,
-                        int64_t n, float* out, cudaStream_t s) {
-  if (cw == 8) return launch<T, 8>(dense, rel, ws, v, cap, kg, cw, n, out, s);
-  if (cw == 64)
-    return launch<T, 64>(dense, rel, ws, v, cap, kg, cw, n, out, s);
-  return launch<T, 0>(dense, rel, ws, v, cap, kg, cw, n, out, s);
+__global__ void __launch_bounds__(kThreads)
+    sell_window_kernel(const T* __restrict__ vals,
+                       const int16_t* __restrict__ cols,
+                       const int64_t* __restrict__ slice_off,
+                       const int16_t* __restrict__ rows,
+                       const int* __restrict__ ws,
+                       const float* __restrict__ v, int64_t nslices, int cw,
+                       int64_t n, float* __restrict__ out) {
+  const int64_t s =
+      static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / kSlice;
+  if (s >= nslices) return;
+  const int t = threadIdx.x % kSlice;
+  const int64_t c = s / kSlicesPerChunk;
+  const int64_t base = static_cast<int64_t>(__ldg(ws + c)) * cw;
+  const int64_t off = __ldg(slice_off + s);
+  const int len = static_cast<int>((__ldg(slice_off + s + 1) - off) / kSlice);
+  float acc;
+  if (len % 4 == 0) {
+    acc = row_sum<4>(vals, cols, v, off + t * 4, len / 4, base, n);
+  } else if (len % 2 == 0) {
+    acc = row_sum<2>(vals, cols, v, off + t * 2, len / 2, base, n);
+  } else {
+    acc = row_sum<1>(vals, cols, v, off + t, len, base, n);
+  }
+  const int r = static_cast<unsigned short>(__ldg(
+      reinterpret_cast<const unsigned short*>(rows) + s * kSlice + t));
+  out[c * kChunkRows + r] = acc;
+}
+
+template <typename T>
+cudaError_t launch(const void* vals, const int16_t* cols,
+                   const int64_t* slice_off, const int16_t* rows,
+                   const int* ws, const float* v, int64_t cap, int cw,
+                   int64_t n, float* out, cudaStream_t s) {
+  const int64_t nslices = cap * kSlicesPerChunk;
+  const int64_t blocks = (nslices + kWarps - 1) / kWarps;
+  sell_window_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const T*>(vals), cols, slice_off, rows, ws, v, nslices, cw,
+      n, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(); no synchronisation.
-extern "C" int bmsp_sell_window(const void* dense, int dense_is_bf16,
-                                const void* rel, const void* ws,
-                                const void* v, int64_t cap, int64_t kg,
-                                int64_t cw, int64_t n, void* out,
-                                void* stream) {
-  if (cap < 0 || kg < 1 || kg > 0x7fffffff || cw < 1 ||
-      cw * kPitch * static_cast<int64_t>(sizeof(float)) > kMaxSmem ||
-      cap > 0x7fffffff) {
+extern "C" int bmsp_sell_window(const void* vals, int vals_is_bf16,
+                                const void* cols, const void* slice_off,
+                                const void* rows, const void* ws,
+                                const void* v, int64_t cap, int64_t cw,
+                                int64_t n, void* out, void* stream) {
+  if (cap < 0 || cap > 0x3fffffff || cw < 1 || 256 * cw > (1 << 15)) {
     return cudaErrorInvalidValue;
   }
   if (cap == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
-  const auto* r = static_cast<const int*>(rel);
+  const auto* c = static_cast<const int16_t*>(cols);
+  const auto* so = static_cast<const int64_t*>(slice_off);
+  const auto* r = static_cast<const int16_t*>(rows);
   const auto* w = static_cast<const int*>(ws);
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(out);
-  const int k = static_cast<int>(kg);
-  const int c = static_cast<int>(cw);
-  if (dense_is_bf16) {
-    return dispatch_cw<__nv_bfloat16>(dense, r, w, vf, cap, k, c, n, of, s);
+  const int cwi = static_cast<int>(cw);
+  if (vals_is_bf16) {
+    return launch<__nv_bfloat16>(vals, c, so, r, w, vf, cap, cwi, n, of, s);
   }
-  return dispatch_cw<float>(dense, r, w, vf, cap, k, c, n, of, s);
+  return launch<float>(vals, c, so, r, w, vf, cap, cwi, n, of, s);
 }

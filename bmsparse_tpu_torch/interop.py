@@ -16,6 +16,7 @@ import torch
 
 from .format import bitmap as bm
 from .format.bmsparse import BmSparse
+from .ops.cuda.sell_kernel import pack_group
 from .ops.cuda.spgemm_window_kernel import _SENT_REL
 from .ops.plan import Prepared
 from .ops.route import StreamPlan
@@ -67,7 +68,8 @@ def prepared_from_numpy(m: BmSparse, arrays: Mapping[str, Any],
     sell_bcol, sell_ws, sell_rel, ovf_dense, ovf_bcol (entries may be
     None), the statics dia_offsets, sell_ks, sell_rows, ovf_ks, ovf_rows,
     and optionally `stream`: a mapping of the StreamPlan fields (arrays
-    and statics) or None."""
+    and statics) or None. The windowed groups' packs (sell_pack) are
+    built here from their slabs, as prepare() builds them."""
     device = m.device if device is None else device
     fields: dict = {f: tensor_from_numpy(arrays.get(f), device)
                     for f in _PLAN_TENSORS}
@@ -78,6 +80,10 @@ def prepared_from_numpy(m: BmSparse, arrays: Mapping[str, Any],
         v = arrays.get(f, ())
         fields[f] = tuple(int(x) for x in v) if isinstance(
             v, (tuple, list)) else int(v)
+    fields["sell_pack"] = tuple(
+        None if rel is None else pack_group(d, rel, ws)
+        for d, rel, ws in zip(fields["sell_dense"], fields["sell_rel"],
+                              fields["sell_ws"]))
     st = arrays.get("stream")
     if st is not None:
         fields["stream"] = StreamPlan(

@@ -113,8 +113,14 @@ _PLAN_DUMP_VERSION = 1
 
 
 def _cpu(x):
+    """Tensors moved to the CPU, in tuples and in a SellPack's fields (a
+    dict of them, which torch.load's weights_only mode accepts)."""
+    from ..ops.cuda.sell_kernel import SellPack
+
     if isinstance(x, tuple):
         return tuple(_cpu(t) for t in x)
+    if isinstance(x, SellPack):
+        return {k: _cpu(t) for k, t in x.state().items()}
     return x.cpu() if isinstance(x, torch.Tensor) else x
 
 
@@ -148,6 +154,7 @@ def load_prepared(path: str, m: BmSparse):
     m's device in one pass. Returns None when the dump's version or layout
     stamp does not match the running code: callers fall back to
     prepare(m)."""
+    from ..ops.cuda.sell_kernel import SellPack
     from ..ops.plan import PLAN_LAYOUT_VERSION, Prepared
     from ..ops.route import StreamPlan
 
@@ -156,4 +163,7 @@ def load_prepared(path: str, m: BmSparse):
             or d.get("layout_version") != PLAN_LAYOUT_VERSION):
         return None
     stream = None if d["stream"] is None else StreamPlan(**d["stream"])
-    return Prepared(m=m, stream=stream, **d["fields"]).to(m.device)
+    fields = dict(d["fields"])
+    fields["sell_pack"] = tuple(None if x is None else SellPack(**x)
+                                for x in fields["sell_pack"])
+    return Prepared(m=m, stream=stream, **fields).to(m.device)

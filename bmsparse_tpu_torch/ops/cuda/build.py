@@ -119,7 +119,7 @@ def load() -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.bmsp_dia_spmv.argtypes = [p, i32, p, p, i32, i64, i64, i64, p, p]
     lib.bmsp_dia_spmv.restype = i32
-    lib.bmsp_sell_window.argtypes = [p, i32, p, p, p, i64, i64, i64, i64,
+    lib.bmsp_sell_window.argtypes = [p, i32, p, p, p, p, p, i64, i64, i64,
                                      p, p]
     lib.bmsp_sell_window.restype = i32
     for fn in (lib.bmsp_numeric_sell, lib.bmsp_numeric_window):

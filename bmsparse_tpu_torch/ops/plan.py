@@ -14,8 +14,9 @@ Tier 2 — SELL (sliced-ELL over slots of 8 rows x cw columns, C = 128
   the 128-lane axis. Block rows are sorted by slot count (SELL-sigma),
   grouped into chunks of 128 rows, and each chunk padded to its K class.
   Groups whose chunks each fit one WINDOW_UNITS-wide column window carry
-  a window plan (sell_ws, sell_rel) for the windowed kernel
-  (csrc/sell_window.cu); the others gather v per slot.
+  a window plan (sell_ws, sell_rel) and a compact pack of their nonzeros
+  (sell_pack) for the windowed kernel (csrc/sell_window.cu); the others
+  gather v per slot.
 
 Overflow — a mini-SELL of each row's far outlier slots, so that a few
   long links do not keep their chunk out of the windowed kernel.
@@ -48,8 +49,9 @@ from .cuda import sell_kernel as _sk
 # The port's own stamp on plan dumps (io/binary.save_prepared): a dump
 # loads only under the stamp it was written with. Bump it whenever a
 # field of Prepared or StreamPlan changes. It starts at the JAX package's
-# layout 10, whose arrays the port's plans equal array for array.
-PLAN_LAYOUT_VERSION = 10
+# layout 10, whose arrays the port's plans equal array for array; 11
+# adds the windowed groups' packs (sell_pack).
+PLAN_LAYOUT_VERSION = 11
 
 SELL_C = 128                 # lanes per chunk
 DIA_MIN_FILL = 0.15          # min diagonal fill to justify a dense pass
@@ -152,6 +154,9 @@ class Prepared:
     # Padding slots store rel 0 (their dense values are zero).
     sell_ws: tuple = ()
     sell_rel: tuple = ()
+    # sell_pack[g]: the windowed group's nonzeros for the kernel
+    # (ops/cuda/sell_kernel.SellPack), None where the group gathers
+    sell_pack: tuple = ()
     # block-row r's SELL output lives at stacked row out_gather[r]; rows
     # with no SELL slots point past the end (read as zero).
     out_gather: torch.Tensor | None = None   # (block_rows,) int32
@@ -181,8 +186,8 @@ class Prepared:
             stream=None if self.stream is None else self.stream.to(device),
             **{f: mv(getattr(self, f))
                for f in ("dia", "sell_dense", "sell_bcol", "sell_ws",
-                         "sell_rel", "out_gather", "ovf_dense", "ovf_bcol",
-                         "ovf_gather")})
+                         "sell_rel", "sell_pack", "out_gather", "ovf_dense",
+                         "ovf_bcol", "ovf_gather")})
 
     @property
     def dense_flat(self) -> torch.Tensor:
@@ -528,6 +533,7 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     sell_ks: list = []
     sell_ws: list = []
     sell_rel: list = []
+    sell_pack: list = []
     out_gather = None
     sell_rows = 0
     ovf_dense: list = []
@@ -613,6 +619,8 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
             secondary_wlo=single, win_ok=win_ok, elig_split=win_ok,
         )
         out_gather = torch.from_numpy(og)
+        sell_pack = [None if rel is None else _sk.pack_group(d, rel, ws)
+                     for d, rel, ws in zip(sell_dense, sell_rel, sell_ws)]
         if ovf_idx is not None:
             (ovf_dense, ovf_bcol, ovf_ks, _, _,
              og2, ovf_rows) = _build_sell_tier(
@@ -626,6 +634,7 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
         sell_dense=tuple(sell_dense), sell_bcol=tuple(sell_bcol),
         sell_ks=tuple(sell_ks),
         sell_ws=tuple(sell_ws), sell_rel=tuple(sell_rel),
+        sell_pack=tuple(sell_pack),
         out_gather=out_gather, sell_rows=sell_rows,
         ovf_dense=tuple(ovf_dense), ovf_bcol=tuple(ovf_bcol),
         ovf_ks=tuple(ovf_ks), ovf_gather=ovf_gather, ovf_rows=ovf_rows,
@@ -670,12 +679,14 @@ def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:
     cast element-wise and the index arrays do not depend on the dtype, so
     the result equals prepare(m, dtype) for float32-exact values. Window
     eligibility is re-checked for the target itemsize, as prepare would
-    decide it."""
+    decide it; a group that keeps its window keeps its pack, values
+    cast."""
     if dtype == getattr(torch, p.plan_dtype):
         return p
     cw = p.sell_dense[0].shape[0] if p.sell_dense else 8
     ws_l: list = []
     rel_l: list = []
+    pack_l: list = []
     for g, kg in enumerate(p.sell_ks):
         ok = (
             p.sell_rel[g] is not None
@@ -684,6 +695,7 @@ def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:
         )
         ws_l.append(p.sell_ws[g] if ok else None)
         rel_l.append(p.sell_rel[g] if ok else None)
+        pack_l.append(p.sell_pack[g].astype(dtype) if ok else None)
     return dataclasses.replace(
         p,
         dense_flat_=None,
@@ -693,6 +705,7 @@ def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:
         ovf_dense=tuple(d.to(dtype) for d in p.ovf_dense),
         sell_ws=tuple(ws_l),
         sell_rel=tuple(rel_l),
+        sell_pack=tuple(pack_l),
     )
 
 

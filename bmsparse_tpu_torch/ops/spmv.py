@@ -4,8 +4,9 @@ Counterpart of ``bmsparse_tpu/ops/spmv.py``. A Prepared plan
 (ops/plan.py) runs the tiered path:
 
   DIA tier        -> dia_spmv      (csrc/dia_spmv.cu)
-  SELL tier       -> sell_window   (csrc/sell_window.cu) for groups with a
-                     window plan; a per-slot torch gather for the others
+  SELL tier       -> sell_window   (csrc/sell_window.cu) on the packs of the
+                     groups with a window plan; a per-slot torch gather
+                     for the others
   overflow tier   -> per-slot torch gather
   row placement   -> torch gather through out_gather / ovf_gather
   stream tier     -> window_product + rowwise_gather (csrc/window_product.cu,
@@ -106,7 +107,7 @@ def _spmv_prepared(p, v: torch.Tensor, impl: str) -> torch.Tensor:
     if p.sell_ks:
         u += sell_apply(
             p.sell_dense, p.sell_bcol, p.out_gather, vpad, nbc,
-            sell_ws=p.sell_ws, sell_rel=p.sell_rel, kernel=kernels,
+            sell_pack=p.sell_pack, kernel=kernels,
         ).reshape(npad)
     if p.ovf_ks:
         # per-row outlier slots: few and scattered by construction, so
@@ -157,16 +158,15 @@ def sell_apply(
     out_gather: torch.Tensor,
     vpad: torch.Tensor,
     nbc: int,
-    sell_ws: tuple = (),
-    sell_rel: tuple = (),
+    sell_pack: tuple = (),
     kernel: bool = False,
     col_base: int | None = None,
     global_sentinel: int | None = None,
 ) -> torch.Tensor:
     """SELL-tier contribution: (block_rows, 8) row-major.
 
-    Per K-group, a windowed group (one with sell_rel[g]) goes through
-    `sell_window`; any other gathers each slot's v segment from a (cw,
+    Per K-group, a windowed group (one with a pack, sell_pack[g]) goes
+    through `sell_window`; any other gathers each slot's v segment from a (cw,
     ncu + 1) table whose last column is zero (the padding slots' column),
     then sums over (window scalar, k). The rows are then placed by the
     out_gather row map (rows with no slots read zero).
@@ -185,10 +185,10 @@ def sell_apply(
     parts = []
     for g, (dense_g, bcol_g) in enumerate(zip(sell_dense, sell_bcol)):
         cw_g, ch, kg, _, lanes = dense_g.shape
-        if (col_base is None and g < len(sell_rel)
-                and sell_rel[g] is not None):
+        if (col_base is None and g < len(sell_pack)
+                and sell_pack[g] is not None):
             win = sell_window if kernel else sell_window_plain
-            contrib = win(dense_g, sell_rel[g], sell_ws[g], vpad, cw_g, n)
+            contrib = win(sell_pack[g], vpad, n)
         else:
             if vtab is None:
                 vflat = torch.zeros((ncu + 1) * cw, dtype=cdt,

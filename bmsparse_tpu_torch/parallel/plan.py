@@ -100,6 +100,8 @@ def prepare_sharded(sm: ShardedBmSparse) -> ShardedPrepared:
     forced_groups = tuple(
         (k, group_need[k]) for k in sorted(group_need, reverse=True))
     plans = [plan(s, lm, forced_groups) for s, lm in enumerate(locals_)]
+    # forced layouts gather every group (sell_apply's col_base path)
+    assert not any(pk is not None for p in plans for pk in p.sell_pack)
 
     dev = sm.device
 

@@ -8,6 +8,8 @@ where the JAX package blocks on a result.
 `time_op`: on a CUDA device the time of each run is taken between two
 CUDA events recorded on the current stream, so it is device time, not
 the time to enqueue; on the CPU it is the host clock around the call.
+Like the package's other entry points it times on the card unless the
+caller asks for the CPU, and raises where there is no card.
 
 `sync` waits for a result on a CUDA device (JAX's block_until_ready).
 """
@@ -67,11 +69,15 @@ class PhaseTimer:
 
 
 def time_op(fn, *args, warmup: int = 1, iters: int = 10,
-            device=None, **kw) -> tuple[float, Any]:
+            device="cuda", **kw) -> tuple[float, Any]:
     """Median time in seconds of fn(*args, **kw) over `iters` runs after
     `warmup` runs, and the last result. `device` names where fn runs
-    ("cuda", "cuda:1", "cpu"; default the CPU)."""
-    device = torch.device(device or "cpu")
+    ("cuda", "cuda:1", "cpu"; default "cuda", which raises where no CUDA
+    device exists: CPU work passes device="cpu")."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("time_op: no CUDA device; pass device='cpu' to "
+                           "time CPU work")
     out = None
     for _ in range(max(warmup, 1)):
         out = fn(*args, **kw)

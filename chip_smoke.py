@@ -54,6 +54,8 @@ EXACT = dict(rtol=0, atol=0)       # one product or one copy per output
 COMPRESS_REL = 1e-6                # compress modes vs scatter, max|dC| / max|C|
 ORACLE_REL = 1e-4                  # vs scipy float64, max|u - ref| / max|ref|
 WARMUP, ITERS = 3, 20
+FLUSH_BYTES = 256 << 20            # written between L2-cold runs (L2: 50 MB)
+SPIN_CYCLES = 2_000_000            # ~1 ms of device spin before a cold run
 # H100 SXM peaks (NVIDIA's data sheet, at a 700 W limit): device memory
 # and float32 outside the tensor cores, for the kernels' bounds
 PEAK_BYTES_PER_S = 3.35e12
@@ -77,6 +79,57 @@ def median_ms(fn, torch) -> float:
 
     t, _ = time_op(fn, warmup=WARMUP, iters=ITERS, device="cuda")
     return t * 1e3
+
+
+def cold_ms(fn, torch) -> float:
+    """Median ms of fn from a cold L2, by CUDA events: before each of
+    ITERS runs a FLUSH_BYTES buffer is written and the stream spins for
+    SPIN_CYCLES, both outside the events, so that fn's launches are all
+    queued when its first kernel starts and the events hold device time
+    alone (no host launch gaps), L2 evicted."""
+    import statistics
+
+    buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    for _ in range(WARMUP):
+        fn()
+    times = []
+    for _ in range(ITERS):
+        buf.fill_(1.0)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del buf
+    return statistics.median(times)
+
+
+def windowed_csr(torch, p, n):
+    """The windowed SELL groups of plan p as one CSR matrix on the card
+    (int32 indices), the groups' output rows stacked in group order, and
+    the number of nonzeros: what one torch.sparse_csr_tensor matvec needs
+    to compute sell_window's outputs. Built from the slabs, which plans
+    with and without packs both hold."""
+    rows, cols, vals = [], [], []
+    base = 0
+    for d, rel, ws in zip(p.sell_dense, p.sell_rel, p.sell_ws):
+        if rel is None:
+            continue
+        w, c, k, i, lane = torch.nonzero(d, as_tuple=True)
+        rows.append(base + (c * 8 + i) * 128 + lane)
+        cols.append((ws.long()[c] + rel.long()[c, k, lane]) * d.shape[0] + w)
+        vals.append(d[w, c, k, i, lane].float())
+        base += d.shape[1] * 8 * 128
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    order = torch.argsort(rows * n + cols)
+    crow = torch.zeros(base + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=base), 0)
+    csr = torch.sparse_csr_tensor(crow.int(), cols[order].int(),
+                                  vals[order], (base, n))
+    return csr, int(vals.numel())
 
 
 def device_profile(fn, torch, iters: int = 10):
@@ -196,7 +249,7 @@ def phase1_kernels(torch, dev):
     """Each kernel against its plain version at main-path shapes."""
     from bmsparse_tpu_torch.ops.cuda import sell_kernel as sk
     from bmsparse_tpu_torch.ops.cuda.sell_kernel import (
-        sell_window, sell_window_plain,
+        pack_group, sell_window, sell_window_plain,
     )
     from bmsparse_tpu_torch.ops.cuda.spmv_kernel import (
         dia_spmv, dia_spmv_plain,
@@ -231,17 +284,19 @@ def phase1_kernels(torch, dev):
         rel = torch.randint(0, sk.WINDOW_UNITS, (cap, kg, 128), generator=g,
                             device=dev, dtype=torch.int32)
         dense = torch.randn((cw, cap, kg, 8, 128), generator=g, device=dev)
-        dense *= torch.rand(dense.shape, generator=g, device=dev) < 0.05
+        dense = torch.where(torch.rand(dense.shape, generator=g, device=dev)
+                            < 0.05, dense, 0.0)
         for dt in (torch.float32, torch.bfloat16):
-            d = dense.to(dt)
-            got = sell_window(d, rel, ws, v, cw, n)
-            want = sell_window_plain(d, rel, ws, v, cw, n)
+            pack = pack_group(dense.to(dt), rel, ws)
+            got = sell_window(pack, v, n)
+            want = sell_window_plain(pack, v, n)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, **TOL)
             err = max_abs(got, want)
             errs["sell_window"] = max(errs["sell_window"], err)
-            print(f"phase1 sell_window cw={cw} cap={cap} kg={kg} {dt}: "
-                  f"max_abs_err={err!r}")
+            print(f"phase1 sell_window cw={cw} cap={cap} kg={kg} {dt} "
+                  f"({pack.nnz} nonzeros, {pack.vals.numel()} pack entries)"
+                  f": max_abs_err={err!r}")
     return errs
 
 
@@ -429,10 +484,13 @@ def phase2_main_path(torch):
     built with stream="off" (the tier prepare's default "auto" picks is
     printed in phase 2's stream section)."""
     import bmsparse_tpu_torch as bt
-    from bmsparse_tpu_torch.ops.cuda.sell_kernel import sell_window
+    from bmsparse_tpu_torch.ops.cuda.sell_kernel import (
+        sell_window, sell_window_plain,
+    )
     from bmsparse_tpu_torch.ops.cuda.spmv_kernel import dia_spmv
 
     launches = {"dia_spmv": 0, "sell_window": 0}
+    errs = {"sell_window": 0.0}
     runs = {}
     for name, load in matrices():
         dia_spmv.launches = sell_window.launches = 0
@@ -476,8 +534,35 @@ def phase2_main_path(torch):
                   "road1M: SELL window kernel not launched")
             check(nwin > 0 and p.ovf_ks,
                   "road1M: expected windowed groups and overflow slots")
+            errs["sell_window"] = pack_check(torch, p, v, "road1M",
+                                             sell_window, sell_window_plain)
         runs[name] = (m, p, v)
-    return launches, runs
+    return launches, runs, errs
+
+
+def pack_check(torch, p, v, what, kernel, plain) -> float:
+    """Each windowed group's pack of plan p: its size against the slab's,
+    and the kernel against its plain twin on it. Returns the largest
+    max_abs_err."""
+    n = p.block_cols * 8
+    vpad = torch.zeros(n, device=v.device)
+    vpad[: v.shape[0]] = v
+    err = 0.0
+    for g, pk in enumerate(p.sell_pack):
+        if pk is None:
+            continue
+        d = p.sell_dense[g]
+        got, want = kernel(pk, vpad, n), plain(pk, vpad, n)
+        if v.is_cuda:
+            torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        err = max(err, max_abs(got, want))
+        print(f"phase2 {what} sell_window group {g} {tuple(d.shape)}: "
+              f"{pk.nnz} nonzeros, {pk.vals.numel()} pack entries "
+              f"({pk.vals.numel() / max(pk.nnz, 1)!r} per nonzero), pack "
+              f"{pk.nbytes()} bytes against {nbytes(d)} of slab; kernel vs "
+              f"plain max_abs_err={max_abs(got, want)!r}")
+    return err
 
 
 def stream_matrices():
@@ -912,9 +997,11 @@ def phase3_stream_times(torch, stream_runs, auto_runs, card):
     wargs, gcalls = stream_kernel_inputs(torch, s, v)
     rows = []
     # window_product: vals, rel, ws read and the products written once;
-    # each distinct window of v once; one multiply per slot
-    t_k = median_ms(lambda: window_product(*wargs), torch)
-    t_p = median_ms(lambda: window_product_plain(*wargs), torch)
+    # each distinct window of v once; one multiply per slot. Timed
+    # L2-cold: its 37 MB stay in L2 between back-to-back runs
+    t_k = cold_ms(lambda: window_product(*wargs), torch)
+    t_p = cold_ms(lambda: window_product_plain(*wargs), torch)
+    t_warm = median_ms(lambda: window_product(*wargs), torch)
     n_win = int(torch.unique(s.ws).numel())
     w_bytes = nbytes(s.vals_grid, s.rel_grid, s.ws) \
         + nbytes(s.vals_grid) + min(n_win * s.w, s.vtab_len) * 4
@@ -933,7 +1020,8 @@ def phase3_stream_times(torch, stream_runs, auto_runs, card):
     rows.append(kernel_row("rowwise_gather", t_k, t_p,
                            bound(sum(g_bytes), 0), t_lib))
     print(f"phase3 stream kernels web256k: window_product kernel "
-          f"{rows[0]['ms']!r} ms, plain {rows[0]['plain_ms']!r} ms, bound "
+          f"{rows[0]['ms']!r} ms, plain {rows[0]['plain_ms']!r} ms (L2-cold "
+          f"device ms; L2-warm event ms {t_warm!r}), bound "
           f"{rows[0]['bound_ms']!r} ms; rowwise_gather (stages 2+3, x "
           f"{[tuple(a[0].shape) for a in gcalls]}) kernel {rows[1]['ms']!r}"
           f" ms, plain {rows[1]['plain_ms']!r} ms, torch.gather "
@@ -1250,8 +1338,26 @@ def phase3_times(torch, runs, card):
                   f"(torch.profiler) [{card}]")
 
     kernels = []
-    p = runs["stencil2M"][1]
-    vpad = runs["stencil2M"][2]
+    m, p, vpad = runs["stencil2M"]
+    # the one PyTorch call: a CSR matvec over the whole matrix, whose
+    # nonzeros all lie on the DIA tier (built outside the timed region)
+    sp = m.to_scipy().tocsr()
+    check(not p.sell_ks, "stencil2M: expected the DIA tier alone")
+    csr = torch.sparse_csr_tensor(
+        *(torch.from_numpy(x.astype(np.int32)).to("cuda")
+          for x in (sp.indptr, sp.indices)),
+        torch.from_numpy(sp.data.astype(np.float32)).to("cuda"), sp.shape)
+    del sp
+    u_lib = csr @ vpad
+    torch.testing.assert_close(
+        u_lib, dia_spmv(p.dia, vpad, p.dia_offsets).reshape(-1)[
+            :m.num_rows], **TOL)
+    t_lib = median_ms(lambda: csr @ vpad, torch)
+    print(f"phase3 dia_spmv stencil2M one PyTorch call (torch.sparse_csr_"
+          f"tensor @ v, {m.nnz} nonzeros, int32 indices): {t_lib!r} ms; "
+          f"{profile_text(device_profile(lambda: csr @ vpad, torch))} "
+          f"(torch.profiler) [{card}]")
+    del csr, u_lib
     for dia, dt in ((p.dia, "float32"), (p.dia.to(torch.bfloat16),
                                           "bfloat16")):
         t_k = median_ms(lambda: dia_spmv(dia, vpad, p.dia_offsets), torch)
@@ -1269,32 +1375,55 @@ def phase3_times(torch, runs, card):
         if dt == "float32":
             out_b = dia.shape[1] * 128 * 4
             kernels.append(kernel_row("dia_spmv", t_k, t_p, bound(
-                nbytes(dia, vpad) + out_b, 2 * dia.numel())))
+                nbytes(dia, vpad) + out_b, 2 * dia.numel()), t_lib))
 
     m, p, v = runs["road1M"]
     n = m.block_cols * 8
     vpad = torch.zeros(n, device="cuda")
     vpad[: v.shape[0]] = v
-    groups = [(d, r, w) for d, r, w in zip(p.sell_dense, p.sell_rel,
-                                           p.sell_ws) if r is not None]
+    windowed = [(d, pk) for d, pk in zip(p.sell_dense, p.sell_pack)
+                if pk is not None]
+    packs = [pk for _, pk in windowed]
 
     def run_groups(fn):
-        return [fn(d, r, w, vpad, d.shape[0], n) for d, r, w in groups]
+        return [fn(pk, vpad, n) for pk in packs]
 
-    t_k = median_ms(lambda: run_groups(sell_window), torch)
-    t_p = median_ms(lambda: run_groups(sell_window_plain), torch)
-    shapes = [tuple(d.shape) for d, _, _ in groups]
-    slab = sum(d.numel() * d.element_size() for d, _, _ in groups)
-    print(f"phase3 sell_window road1M windowed groups {shapes} ({slab!r} "
-          f"bytes of slabs): kernel {t_k!r} ms, plain {t_p!r} ms [{card}]")
-    for what, fn in (("kernel", sell_window), ("plain", sell_window_plain)):
-        prof = device_profile(lambda: run_groups(fn), torch)
-        print(f"phase3 sell_window road1M {what}: {profile_text(prof)} "
-              f"(torch.profiler) [{card}]")
-    sell_b = sum(nbytes(d, r, w) + d.shape[1] * 8 * 128 * 4
-                 for d, r, w in groups) + nbytes(vpad)
-    kernels.append(kernel_row("sell_window", t_k, t_p, bound(
-        sell_b, sum(2 * d.numel() for d, _, _ in groups))))
+    # L2-cold: inside road1M's SpMV the DIA strip and the other tiers
+    # pass through L2 before these groups run
+    t_k = cold_ms(lambda: run_groups(sell_window), torch)
+    t_p = cold_ms(lambda: run_groups(sell_window_plain), torch)
+    t_warm = median_ms(lambda: run_groups(sell_window), torch)
+    csr, nnz = windowed_csr(torch, p, n)
+    u_lib = csr @ vpad
+    torch.testing.assert_close(
+        u_lib, torch.cat([o.reshape(-1) for o in run_groups(sell_window)]),
+        **TOL)
+    t_lib = cold_ms(lambda: csr @ vpad, torch)
+    out_rows = sum(pk.cap * 8 * 128 for pk in packs)
+    # bound: each nonzero's value read once, each output row written once
+    # (utils/roofline.py's SpMV rule); one FMA per nonzero
+    bnd = bound(nnz * packs[0].vals.element_size() + out_rows * 4, 2 * nnz)
+    entries = sum(pk.vals.numel() for pk in packs)
+    print(f"phase3 sell_window road1M windowed groups "
+          f"{[tuple(d.shape) for d, _ in windowed]}: {nnz} nonzeros, "
+          f"{out_rows} output rows; packs {entries} entries "
+          f"({entries / nnz!r} per nonzero), "
+          f"{sum(pk.nbytes() for pk in packs)} bytes; slabs "
+          f"{sum(nbytes(d) for d, _ in windowed)} bytes [{card}]")
+    print(f"phase3 sell_window road1M L2-cold device ms (events behind a "
+          f"queued spin, {FLUSH_BYTES} bytes written before each run): "
+          f"kernel {t_k!r}, plain {t_p!r}, torch.sparse_csr_tensor @ v "
+          f"{t_lib!r}; bound {bnd[0]!r} ms ({bnd[1]}), kernel at "
+          f"{bnd[0] / t_k!r} of it; L2-warm event ms (host launch "
+          f"included) kernel {t_warm!r} [{card}]")
+    for what, fn in (("kernel", lambda: run_groups(sell_window)),
+                     ("plain", lambda: run_groups(sell_window_plain)),
+                     ("csr", lambda: csr @ vpad)):
+        print(f"phase3 sell_window road1M {what} L2-warm: "
+              f"{profile_text(device_profile(fn, torch))} (torch.profiler) "
+              f"[{card}]")
+    kernels.append(kernel_row("sell_window", t_k, t_p, bnd, t_lib))
+    del csr, u_lib
     return kernels
 
 
@@ -1364,8 +1493,9 @@ def phase4_converter(torch):
 
 
 def plan_items(p):
-    """(name, value) of every field of a Prepared plan and of its
-    StreamPlan but the container and the cached dense tiles."""
+    """(name, value) of every field of a Prepared plan, of its StreamPlan
+    and of its SELL packs but the container and the cached dense
+    tiles."""
     import dataclasses
 
     for f in dataclasses.fields(p):
@@ -1375,6 +1505,10 @@ def plan_items(p):
         if f.name == "stream" and x is not None:
             for g in dataclasses.fields(x):
                 yield f"stream.{g.name}", getattr(x, g.name)
+        elif f.name == "sell_pack":
+            for g, pk in enumerate(x):
+                yield from ((f"sell_pack[{g}].{k}", t) for k, t in (
+                    pk.state().items() if pk is not None else [("", None)]))
         else:
             yield f.name, x
 
@@ -1393,16 +1527,20 @@ def phase4_persistence(torch, road, tmp):
     """save_bmsparse/load_bmsparse of road1M; save_prepared/load_prepared
     of road1M's block tiers and web256k's stream tier, each loaded plan
     equal to the saved one field for field, its SpMV bitwise equal and
-    launching the plan's kernels."""
+    launching the plan's kernels; the loaded road1M packs held against
+    the twin. Returns sell_window's largest max_abs_err there."""
     import bmsparse_tpu_torch as bt
     from bmsparse_tpu_torch.io.binary import load_prepared, save_prepared
-    from bmsparse_tpu_torch.ops.cuda.sell_kernel import sell_window
+    from bmsparse_tpu_torch.ops.cuda.sell_kernel import (
+        sell_window, sell_window_plain,
+    )
     from bmsparse_tpu_torch.ops.cuda.shuffle_kernel import (
         rowwise_gather, window_product,
     )
     from bmsparse_tpu_torch.ops.cuda.spmv_kernel import dia_spmv
     from bmsparse_tpu_torch.utils.testmats import webgraph
 
+    err = 0.0
     path = os.path.join(tmp, "road1M.npz")
     t0 = time.perf_counter()
     bt.save_bmsparse(path, road)
@@ -1456,7 +1594,11 @@ def phase4_persistence(torch, road, tmp):
         check(torch.equal(u, u2), f"{name}: spmv on the loaded plan differs")
         check(all(n > 0 for n in counts.values()),
               f"{name}: the loaded plan's kernels were not launched")
+        if name == "road1M":
+            err = max(err, pack_check(torch, p2, v, "road1M loaded plan",
+                                      sell_window, sell_window_plain))
         del p, p2
+    return err
 
 
 def run_cli(main, argv, label):
@@ -1602,18 +1744,20 @@ def phase4_examples(torch):
 
 def phase4_surfaces(torch):
     """The user surfaces: the device converter, persistence, the CLIs and
-    the examples, through the public API on the card."""
+    the examples, through the public API on the card. Returns
+    sell_window's largest max_abs_err on the loaded road1M plan."""
     import tempfile
 
     t0 = time.perf_counter()
     road = phase4_converter(torch)
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
-        phase4_persistence(torch, road, tmp)
+        err = phase4_persistence(torch, road, tmp)
         del road
         phase4_clis(torch, tmp)
     phase4_examples(torch)
     print(f"phase4 seconds: {time.perf_counter() - t0:.1f}")
+    return err
 
 
 def same_structure(torch, c, c_ref, what: str) -> float:
@@ -1915,8 +2059,9 @@ def main() -> int:
 
     errs = phase1_kernels(torch, dev)
     errs.update(phase1_spgemm_kernels(torch, dev))
-    launches, runs = phase2_main_path(torch)
+    launches, runs, main_errs = phase2_main_path(torch)
     print(f"phase2 launches on the SpMV block-tier path: {launches}")
+    errs["sell_window"] = max(errs["sell_window"], main_errs["sell_window"])
     stream_launches, stream_errs, stream_runs, auto_runs = phase2_stream(
         torch, runs)
     print(f"phase2 launches on the SpMV stream-tier path: {stream_launches}")
@@ -1943,7 +2088,7 @@ def main() -> int:
     band = spgemm_runs["band2M"]
     del compress_runs, spgemm_runs
     torch.cuda.empty_cache()
-    phase4_surfaces(torch)
+    errs["sell_window"] = max(errs["sell_window"], phase4_surfaces(torch))
     multi_launches, multi_errs = phase5_multidevice(torch, stencil, band,
                                                     card)
     del stencil, band

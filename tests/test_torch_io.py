@@ -162,8 +162,43 @@ def test_load_rejects_stale_layout(tmp_path, monkeypatch):
     m = bt.coo_to_bmsparse(rows, cols, vals, (256, 256), device="cpu")
     path = str(tmp_path / "plan.pt")
     bin_t.save_prepared(path, plan_t.prepare(m))
-    assert plan_t.PLAN_LAYOUT_VERSION == 10
-    monkeypatch.setattr(plan_t, "PLAN_LAYOUT_VERSION", 11)
+    assert plan_t.PLAN_LAYOUT_VERSION == 11
+    monkeypatch.setattr(plan_t, "PLAN_LAYOUT_VERSION", 12)
     assert bin_t.load_prepared(path, m) is None
     with pytest.raises(TypeError, match="Prepared"):
         bin_t.save_prepared(path, m)
+
+
+def test_load_refuses_layout_10_dump(tmp_path, monkeypatch):
+    """A dump stamped with layout 10 (plans without packs) is refused, so
+    a plan that predates the packs is rebuilt, not run without them."""
+    _, rows, cols, vals = _mixed_matrix(n=256)
+    m = bt.coo_to_bmsparse(rows, cols, vals, (256, 256), device="cpu")
+    path = str(tmp_path / "plan.pt")
+    with monkeypatch.context() as mp:
+        mp.setattr(plan_t, "PLAN_LAYOUT_VERSION", 10)
+        bin_t.save_prepared(path, plan_t.prepare(m))
+        assert bin_t.load_prepared(path, m) is not None
+    assert bin_t.load_prepared(path, m) is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_roundtrip_packs(tmp_path, dtype):
+    """The windowed groups' packs come back field for field, and None
+    where a group gathers."""
+    m = bt.coo_to_bmsparse(*tm.roadnet(65536, seed=8), device="cpu")
+    p = plan_t.prepare(m, dtype=getattr(torch, dtype), stream="off")
+    assert any(pk is not None for pk in p.sell_pack)
+    assert any(pk is None for pk in p.sell_pack)
+    u, u2, p2 = _spmv_pair(p, str(tmp_path / "plan.pt"), m)
+    assert torch.equal(u, u2)
+    assert len(p2.sell_pack) == len(p.sell_pack)
+    for a, b in zip(p2.sell_pack, p.sell_pack):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        for f in a.TENSORS:
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype and torch.equal(x, y), f
+        assert a.state().keys() == b.state().keys()
+        assert (a.cw, a.nnz) == (b.cw, b.nnz)

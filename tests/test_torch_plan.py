@@ -159,8 +159,17 @@ def test_cast_prepared_matches_jax(name):
     pj = cast_j(prepare_j(mj, stream="off"), jnp.bfloat16)
     pt = cast_t(prepare_t(mt, stream="off"), torch.bfloat16)
     assert_same_plan(pj, pt)
-    # and the cast equals a bf16 build
-    assert_same_plan(pt, prepare_t(mt, dtype=torch.bfloat16))
+    # and the cast equals a bf16 build, the windowed groups' packs too
+    pb = prepare_t(mt, dtype=torch.bfloat16)
+    assert_same_plan(pt, pb)
+    assert [pk is None for pk in pt.sell_pack] == [
+        rel is None for rel in pt.sell_rel]
+    for x, y in zip(pt.sell_pack, pb.sell_pack):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert x.vals.dtype == torch.bfloat16 and x.nnz == y.nnz
+            for f in x.TENSORS:
+                assert torch.equal(getattr(x, f), getattr(y, f)), f
 
 
 def test_prepare_ragusa16_and_empty(ragusa16):

@@ -31,6 +31,7 @@ from bmsparse_tpu_torch.utils.testmats import make_stencil
 
 from conftest import data_path, random_coo
 from test_pallas_sell import _clustered_coo, _road_like_coo
+from test_torch_kernels import _expand, _same_bits
 from test_torch_plan import jax_plan_arrays
 
 REPO = Path(__file__).resolve().parents[1]
@@ -91,6 +92,47 @@ def test_main_path_tiers_all_run():
     windowed = [rel is not None for rel in p.sell_rel]
     assert p.dia is not None and any(windowed) and not all(windowed)
     assert p.ovf_ks
+
+
+@pytest.mark.parametrize("name", ["road_like", "roadnet"])
+def test_road_packs_and_spmv_match_jax(name):
+    """On road-like matrices the routing is the JAX package's (K-groups,
+    chunk counts, windows, row map), each windowed group's pack expands to
+    the JAX plan's slab bit for bit and equals the pack built from the
+    JAX plan carried across, and spmv equals the JAX package's to 1e-5
+    relative."""
+    r, c, vals, shape = CASES[name]()
+    mj = bj.coo_to_bmsparse(r, c, vals, shape, backend="host")
+    mt = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
+    pj = prepare_j(mj, stream="off")
+    pt = prepare_t(mt, stream="off")
+    assert pt.sell_ks == tuple(pj.sell_ks)
+    np.testing.assert_array_equal(pt.out_gather.numpy(),
+                                  np.asarray(pj.out_gather))
+    for g in range(len(pt.sell_ks)):
+        assert tuple(pt.sell_dense[g].shape) == pj.sell_dense[g].shape
+        for f in ("sell_ws", "sell_rel"):
+            x, y = getattr(pt, f)[g], getattr(pj, f)[g]
+            assert (x is None) == (y is None), f
+            if x is not None:
+                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+        assert (pt.sell_pack[g] is None) == (pt.sell_rel[g] is None)
+    carried = prepared_from_numpy(mt, jax_plan_arrays(pj))
+    windowed = [g for g, pk in enumerate(pt.sell_pack) if pk is not None]
+    assert windowed and all(pt.sell_pack[g].cw == 64 for g in windowed)
+    for g in windowed:
+        pk = pt.sell_pack[g]
+        _same_bits(_expand(pk, np.asarray(pj.sell_rel[g]), pt.sell_ks[g]),
+                   torch.from_numpy(np.array(pj.sell_dense[g])))
+        for f in pk.TENSORS:
+            assert torch.equal(getattr(pk, f),
+                               getattr(carried.sell_pack[g], f)), f
+        assert pk.vals.numel() <= 1.5 * pk.nnz
+    v = _v(shape[1])
+    want = np.asarray(bj.spmv(pj, jnp.asarray(v), impl="pallas"))
+    for p in (pt, carried):
+        u = bt.spmv(p, torch.from_numpy(v)).numpy()
+        assert np.abs(u - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("name", ["clustered", "roadnet"])
