@@ -24,7 +24,12 @@ the public API —
          SpGEMM on band256k; then every shard of 4-shard plans (stencil2M,
          a 262,144-row band, band2M) runs in turn on the card, so the DIA
          kernel sees non-zero column shifts — one card, not a multi-card
-         run —
+         run;
+  the scaling report (phase 6, cli/scaling.py) on the CLI's synthetic
+         band at n = 1,048,576: d = 1 measured over an NCCL group of world
+         size 1, its kernels held against their twins and its SpMV call
+         taken apart, d = 4, 8 projected with the model's data-sheet
+         figures, then the CLI once as a subprocess —
 checks the results against scipy in float64 and against the plain path on
 the card, shows from the launch counters that each path ran through its
 kernels, times kernel and plain paths with CUDA events beside each
@@ -42,6 +47,7 @@ and the line before it lists the kernels as JSON.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -81,12 +87,13 @@ def median_ms(fn, torch) -> float:
     return t * 1e3
 
 
-def cold_ms(fn, torch) -> float:
+def cold_ms(fn, torch, spin_cycles: int = SPIN_CYCLES) -> float:
     """Median ms of fn from a cold L2, by CUDA events: before each of
     ITERS runs a FLUSH_BYTES buffer is written and the stream spins for
-    SPIN_CYCLES, both outside the events, so that fn's launches are all
+    spin_cycles, both outside the events, so that fn's launches are all
     queued when its first kernel starts and the events hold device time
-    alone (no host launch gaps), L2 evicted."""
+    alone (no host launch gaps), L2 evicted. The spin must outlast the
+    host's time to enqueue fn."""
     import statistics
 
     buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
@@ -95,7 +102,7 @@ def cold_ms(fn, torch) -> float:
     times = []
     for _ in range(ITERS):
         buf.fill_(1.0)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -191,24 +198,28 @@ def busy_s(fn, torch) -> float:
     return (prof[0] if prof is not None else median_ms(fn, torch)) / 1e3
 
 
-def profile_text(prof) -> str:
+def profile_text(prof, bound_ms: float | None = None) -> str:
+    """A torch.profiler reading as text; where the function's least time
+    bound_ms is given, a reading below it (inputs warm in L2, or a broken
+    trace) prints as not measured, never as a device time."""
     if prof is None:
         return "device time not measured (no profiler activity)"
     busy, span = prof
+    if bound_ms is not None and busy < bound_ms:
+        return (f"device busy {busy!r} ms per call is below the bound "
+                f"{bound_ms!r} ms (inputs warm in L2, or a broken trace): "
+                f"not a device time")
     return (f"device busy {busy!r} ms per call, idle share "
             f"{1 - busy / span!r} of back-to-back calls")
 
 
-def bounded_profile_text(prof, bound_ms: float) -> str:
-    """profile_text of a kernel whose least time is bound_ms: a trace with
-    no device activity, or with less busy time than the bound allows,
-    prints as a broken trace and not as a time."""
-    if prof is not None and prof[0] >= bound_ms:
-        return profile_text(prof)
-    got = ("no device activity" if prof is None
-           else f"busy {prof[0]!r} ms per call")
-    return (f"broken trace ({got}, bound {bound_ms!r} ms): device time not "
-            f"measured")
+def bounded_ms_text(ms: float, bound_ms: float) -> str:
+    """A kernel's device ms where its least time is bound_ms: a reading
+    below the bound is impossible and prints as a broken one, not as a
+    time."""
+    if ms >= bound_ms:
+        return f"{ms!r} ms"
+    return f"broken reading ({ms!r} ms < bound): not measured"
 
 
 def max_abs(a, b) -> float:
@@ -1035,9 +1046,10 @@ def phase3_stream_times(torch, stream_runs, auto_runs, card):
                        lambda: [rowwise_gather_plain(*a) for a in gcalls]),
                       ("rowwise_gather torch.gather",
                        lambda: [xe.gather(1, ie) for xe, ie in ext])):
+        bnd_ms = rows[0 if kname.startswith("window") else 1]["bound_ms"]
         print(f"phase3 {kname} web256k: "
-              f"{profile_text(device_profile(fn, torch))} (torch.profiler) "
-              f"[{card}]")
+              f"{profile_text(device_profile(fn, torch), bnd_ms)} "
+              f"(torch.profiler) [{card}]")
 
     # ---- the cost model's constants, measured ----------------------------
     x = torch.empty(1 << 28, device="cuda")
@@ -1149,8 +1161,8 @@ def phase3_compress_times(torch, compress_runs, spgemm_runs, card):
             ("index_add_", lambda: [o.index_add_(0, i, w)
                                     for o, i, w in lib])):
         print(f"phase3 segment_compress_class band2M {kname}: "
-              f"{profile_text(device_profile(fn, torch))} (torch.profiler) "
-              f"[{card}]")
+              f"{profile_text(device_profile(fn, torch), row['bound_ms'])} "
+              f"(torch.profiler) [{card}]")
     return [row]
 
 
@@ -1239,20 +1251,6 @@ def phase3_spgemm_times(torch, runs, card):
             ("one launch per group",
              lambda: [fn(*ab, lg, o) for lg, o in per_group]),
             ("plain twin", lambda: plain(*ab, launch, out)))
-        times = {}
-        for what, f in variants:
-            prof = device_profile(f, torch)
-            times[what] = (median_ms(f, torch),
-                           None if prof is None else prof[0])
-            print(f"phase3 {kname} {mname} {what}: event "
-                  f"{times[what][0]!r} ms; {profile_text(prof)} "
-                  f"(torch.profiler) [{card}]")
-        outs = [o for _, o in per_group]
-        t_cat = median_ms(lambda: torch.cat(outs), torch)
-        print(f"phase3 {kname} {mname}: the copy that joins per-group "
-              f"outputs (torch.cat of {len(outs)} outputs, "
-              f"{nbytes(*outs)} bytes): {t_cat!r} ms [{card}]")
-
         # bound: the slot and work tables, each distinct operand tile
         # once, the C rows the main path keeps written once; 1,024 float32
         # operations per live task
@@ -1283,10 +1281,25 @@ def phase3_spgemm_times(torch, runs, card):
         k_bytes += row * (distinct(ia, nb_a) + distinct(ib, nb_b))
         bnd = bound(k_bytes, flops)
         bnd_groups = bound(k_bytes + (group_rows - kept) * 64 * 4, flops)
+        times = {}
+        for what, f in variants:
+            prof = device_profile(f, torch)
+            times[what] = (median_ms(f, torch),
+                           None if prof is None else prof[0])
+            print(f"phase3 {kname} {mname} {what}: event "
+                  f"{times[what][0]!r} ms; {profile_text(prof, bnd[0])} "
+                  f"(torch.profiler) [{card}]")
+        outs = [o for _, o in per_group]
+        t_cat = median_ms(lambda: torch.cat(outs), torch)
+        print(f"phase3 {kname} {mname}: the copy that joins per-group "
+              f"outputs (torch.cat of {len(outs)} outputs, "
+              f"{nbytes(*outs)} bytes): {t_cat!r} ms [{card}]")
         main = times["one launch, ordered (the main path)"]
+        dev_ms = ("not measured" if main[1] is None
+                  else bounded_ms_text(main[1], bnd[0]))
         print(f"phase3 {kname} {mname} ({len(members)} K-groups, "
               f"{launch.work.shape[0]} chunks, one launch): event {main[0]!r}"
-              f" ms, device {main[1]!r} ms; bound {bnd[0]!r} ms "
+              f" ms, device {dev_ms}; bound {bnd[0]!r} ms "
               f"({bnd[1]}; {k_bytes} bytes, {flops} flops); with the "
               f"per-group outputs' trimmed rows written {bnd_groups[0]!r} ms "
               f"[{card}]")
@@ -1368,14 +1381,14 @@ def phase3_times(torch, runs, card):
         print(f"phase3 dia_spmv stencil2M {tuple(dia.shape)} {dt}: kernel "
               f"{t_k!r} ms ({gbs!r} GB/s of strip + v + u), plain {t_p!r} ms"
               f" [{card}]")
+        bnd = bound(nbytes(dia, vpad) + dia.shape[1] * 128 * 4,
+                    2 * dia.numel())
         for what, fn in (("kernel", dia_spmv), ("plain", dia_spmv_plain)):
             prof = device_profile(lambda: fn(dia, vpad, p.dia_offsets), torch)
             print(f"phase3 dia_spmv stencil2M {dt} {what}: "
-                  f"{profile_text(prof)} (torch.profiler) [{card}]")
+                  f"{profile_text(prof, bnd[0])} (torch.profiler) [{card}]")
         if dt == "float32":
-            out_b = dia.shape[1] * 128 * 4
-            kernels.append(kernel_row("dia_spmv", t_k, t_p, bound(
-                nbytes(dia, vpad) + out_b, 2 * dia.numel()), t_lib))
+            kernels.append(kernel_row("dia_spmv", t_k, t_p, bnd, t_lib))
 
     m, p, v = runs["road1M"]
     n = m.block_cols * 8
@@ -1420,8 +1433,8 @@ def phase3_times(torch, runs, card):
                      ("plain", lambda: run_groups(sell_window_plain)),
                      ("csr", lambda: csr @ vpad)):
         print(f"phase3 sell_window road1M {what} L2-warm: "
-              f"{profile_text(device_profile(fn, torch))} (torch.profiler) "
-              f"[{card}]")
+              f"{profile_text(device_profile(fn, torch), bnd[0])} "
+              f"(torch.profiler) [{card}]")
     kernels.append(kernel_row("sell_window", t_k, t_p, bnd, t_lib))
     del csr, u_lib
     return kernels
@@ -2000,13 +2013,16 @@ def phase5_multidevice(torch, stencil, band, card):
                                 else "allgather")[0]
         dia_cases.append((f"stencil2M shard 1 of 4, shift {shift1}",
                           sp4.dia[1], vpad1, sp4.dia_offsets, shift1))
+        # CUDA events: torch.profiler's traces of this kernel read nothing
+        # or less than its bound in whole-script runs (cause not found)
         for what, dia, vv, offs, sh in dia_cases:
             t_k = median_ms(lambda: dia_spmv(dia, vv, offs, sh), torch)
-            prof = device_profile(lambda: dia_spmv(dia, vv, offs, sh), torch)
+            t_cold = cold_ms(lambda: dia_spmv(dia, vv, offs, sh), torch)
             bnd = bound(nbytes(dia, vv) + dia.shape[1] * 128 * 4,
                         2 * dia.numel())[0]
             print(f"phase5 dia_spmv {what} {tuple(dia.shape)}: event "
-                  f"{t_k!r} ms, {bounded_profile_text(prof, bnd)} [{card}]")
+                  f"{t_k!r} ms, L2-cold device {bounded_ms_text(t_cold, bnd)}"
+                  f" (bound {bnd!r} ms) [{card}]")
         for what, fn in (("sharded_spmv_prepared world 1",
                           lambda: sharded_spmv_prepared(sp, v, mesh)),
                          ("single-device spmv", lambda: bt.spmv(p, v)),
@@ -2023,6 +2039,250 @@ def phase5_multidevice(torch, stencil, band, card):
     finally:
         dist.destroy_process_group()
     print(f"phase5 seconds: {time.perf_counter() - t_phase:.1f} [{card}]")
+    return launches, errs
+
+
+# phase 6 is cut to keep it near two minutes: n is half the band2M scale,
+# and d = 2 is left out (d = 4 and 8 take the same halo and selective
+# exchanges; the CPU tests check d = 2)
+SCALING_N = 1_048_576
+SCALING_SIZES = (1, 4, 8)
+
+
+def host_and_event_ms(fn, torch) -> tuple:
+    """ITERS calls of fn after WARMUP, each from an idle device: the host
+    ms spent in each call and the CUDA-event ms of each (host launch gaps
+    included)."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    host, ev = [], []
+    for _ in range(ITERS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        ev.append(start.elapsed_time(end))
+    return host, ev
+
+
+def spread_text(xs) -> str:
+    import statistics
+
+    return (f"median {statistics.median(xs)!r} (min {min(xs)!r}, max "
+            f"{max(xs)!r}) ms")
+
+
+def phase6_d1(torch, m, coo, v, mesh, t_roof_ms, card):
+    """The scaling report's measured d = 1 row, its plans built again as
+    the report's ranks build them (partition(m, 1, align=16),
+    prepare_sharded; prepare_sharded_product with B in the transposed
+    layout): dia_spmv at shard 0's window and shift and numeric_sell
+    through local_multiply against their plain twins, then the d = 1 SpMV
+    call taken apart by CUDA events, the host clock and the syncs it
+    makes. t_roof_ms: the report's compute_s at d = 1 in ms. Returns the
+    kernels' max_abs_err."""
+    from bmsparse_tpu_torch import coo_to_bmsparse
+    from bmsparse_tpu_torch.ops.cuda.spmv_kernel import (
+        dia_spmv, dia_spmv_plain,
+    )
+    from bmsparse_tpu_torch.parallel.partition import partition
+    from bmsparse_tpu_torch.parallel.plan import prepare_sharded
+    from bmsparse_tpu_torch.parallel.product import (
+        local_multiply, prepare_sharded_product, shard_b_needed,
+    )
+    from bmsparse_tpu_torch.parallel.spmv import (
+        _resolve_exchange, local_spmv_prepared, shard_geometry,
+        shard_window, sharded_spmv_prepared,
+    )
+
+    t0 = time.perf_counter()
+    sm = partition(m, 1, align=16)
+    sp = prepare_sharded(sm)
+    b = coo_to_bmsparse(*coo, transposed=True, backend="device",
+                        device="cuda")
+    spp = prepare_sharded_product(sm, partition(b, 1, align=16))
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    ex = _resolve_exchange(sp, "auto")
+    vpad = shard_window(sp, v, 0, ex)
+    shift = shard_geometry(sp, 0, vpad.shape[0], ex)[0]
+    check(bool(sp.dia_offsets), "phase 6: no DIA tier in the d = 1 plan")
+    got = dia_spmv(sp.dia[0], vpad, sp.dia_offsets, shift)
+    want = dia_spmv_plain(sp.dia[0], vpad, sp.dia_offsets, shift)
+    torch.testing.assert_close(got, want, **TOL)
+    errs = {"dia_spmv": max_abs(got, want)}
+    bn = shard_b_needed(spp, 0)
+    got = local_multiply(spp, 0, bn, kernels=True)
+    want = local_multiply(spp, 0, bn, kernels=False)
+    torch.testing.assert_close(got, want, **TOL)
+    errs["numeric_sell"] = max_abs(got, want)
+    del got, want, bn
+    print(f"phase6 d=1 plans on the card (partition + prepare_sharded + "
+          f"device converter for B + prepare_sharded_product) {t_plan!r} s "
+          f"(host clock): ndiags {len(sp.dia_offsets)}, sell_ks "
+          f"{sp.sell_ks}, exchange {ex!r}, dia_spmv shift {shift}; K-groups "
+          f"{list(zip(spp.ks, spp.caps))}; kernel vs plain max_abs_err: "
+          f"dia_spmv {errs['dia_spmv']!r}, numeric_sell "
+          f"{errs['numeric_sell']!r} [{card}]")
+
+    def call():
+        return sharded_spmv_prepared(sp, v, mesh)
+
+    host, ev = host_and_event_ms(call, torch)
+    # the spin before each L2-cold run must outlast the host's enqueue:
+    # take at least four times the slowest call's host time
+    unit = median_ms(lambda: torch.cuda._sleep(SPIN_CYCLES), torch)
+    k = max(1, math.ceil(4 * max(host) / unit))
+    cold = cold_ms(call, torch, k * SPIN_CYCLES)
+    body = cold_ms(lambda: local_spmv_prepared(sp, 0, vpad, ex, True),
+                   torch, k * SPIN_CYCLES)
+    dia = cold_ms(lambda: dia_spmv(sp.dia[0], vpad, sp.dia_offsets, shift),
+                  torch)
+    syncs = count_syncs(call, torch)
+    print(f"phase6 spmv d=1 taken apart ({ITERS} calls): event "
+          f"{spread_text(ev)} from an idle device, host launch gaps "
+          f"included; host clock in the call {spread_text(host)}; host "
+          f"syncs in the call {syncs}. L2-cold device time, launches "
+          f"queued behind a {k * unit!r} ms spin: the call "
+          f"{bounded_ms_text(cold, t_roof_ms)}, its local body "
+          f"(local_spmv_prepared, no exchange) {body!r} ms, dia_spmv alone "
+          f"{dia!r} ms [{card}]")
+    print(f"phase6 spmv d=1 against the model's compute_s {t_roof_ms!r} ms "
+          f"(HBM roofline): {t_roof_ms / min(ev)!r} of it by the fastest "
+          f"event time, {t_roof_ms / cold!r} by the device time without "
+          f"host gaps [{card}]")
+    check(cold >= t_roof_ms, "phase 6: a device time below the HBM roofline")
+    return errs
+
+
+def phase6_scaling(torch, card):
+    """The scaling report (bmsparse_tpu_torch/cli/scaling.py) on the card
+    on the CLI's synthetic band at n = SCALING_N; d = 1 measured
+    over an NCCL group of world 1 in this process (sharded SpMV and product
+    against scipy, CUDA events), its kernels held against their twins and
+    its SpMV call taken apart (phase6_d1); d = 4, 8 projected from plans
+    built on the host with the model's data-sheet figures; then the CLI
+    once as a subprocess at its default n. Returns the main path's
+    launches and the kernels' max_abs_err."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bmsparse_tpu_torch import coo_to_bmsparse
+    from bmsparse_tpu_torch.cli import scaling
+    from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import numeric_sell
+    from bmsparse_tpu_torch.ops.cuda.spmv_kernel import dia_spmv
+    from bmsparse_tpu_torch.parallel.launch import init_group
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    coo = scaling.synthetic("band", SCALING_N)
+    m = coo_to_bmsparse(*coo, backend="device", device="cuda")
+    v = np.random.default_rng(1).standard_normal(SCALING_N).astype(
+        np.float32)
+    t_build = time.perf_counter() - t0
+    check(not dist.is_initialized(), "a process group is still up")
+    mesh = init_group(0, 1, "cuda")
+    try:
+        dia_spmv.launches = numeric_sell.launches = 0
+        t0 = time.perf_counter()
+        rep = scaling.build_report(m, list(SCALING_SIZES), v, iters=ITERS,
+                                   device="cuda")
+        t_rep = time.perf_counter() - t0
+        launches = {"dia_spmv": dia_spmv.launches,
+                    "numeric_sell": numeric_sell.launches}
+        t_roof = rep["spmv"][0]["projected"]["compute_s"]
+        errs = phase6_d1(torch, m, coo, torch.from_numpy(v).cuda(), mesh,
+                         t_roof * 1e3, card)
+    finally:
+        dist.destroy_process_group()
+    del coo
+    model = rep["model"]
+    print(f"phase6 scaling report band n={SCALING_N}: nnz {m.nnz}, blocks "
+          f"{int(m.nb)}; numpy generator + device converter {t_build!r} s, "
+          f"build_report {t_rep!r} s "
+          f"(host clock); model: {model['figures']} figures ({model['link']}"
+          f" {model['link_gbps']} GB/s each way, HBM {model['hbm_gbps']} "
+          f"GB/s, {model['gpus_per_node']} GPUs per node, "
+          f"{model['network_gbps_per_gpu']} GB/s network per GPU; data "
+          f"sheet, not measured) for card {model['card']!r}; launches "
+          f"{launches} [{card}]")
+    check(model["card"] == card.split(",")[0].strip(),
+          f"model card {model['card']!r} is not nvidia-smi's {card!r}")
+    check(all(n > 0 for n in launches.values()),
+          f"phase 6: a kernel was not launched: {launches}")
+    check("spgemm_skipped" not in rep, "phase 6: the SpGEMM rows were "
+          f"skipped: {rep.get('spgemm_skipped')}")
+    effs = []
+    for row in rep["spmv"]:
+        pr = row["projected"]
+        effs += [pr["efficiency_serialized"], pr["efficiency_overlapped"]]
+        print(f"phase6 spmv d={row['d']}: projected (data-sheet model) "
+              f"exchange {pr['exchange']!r}, {pr['nvlink_bytes_per_gpu']} B "
+              f"per GPU, compute_s {pr['compute_s']!r}, nvlink_s "
+              f"{pr['nvlink_s']!r}, efficiency {pr['efficiency_serialized']!r}"
+              f" serialized / {pr['efficiency_overlapped']!r} overlapped; "
+              f"shard_imbalance {row['shard_imbalance']!r}")
+    gem = {row["d"]: row for row in rep["spgemm"]}
+    check(sorted(gem) == list(SCALING_SIZES),
+          f"phase 6: SpGEMM rows {sorted(gem)}")
+    for d, row in gem.items():
+        if d == 1:
+            continue
+        pr = row["projected"]
+        effs += [pr["efficiency_serialized"], pr["efficiency_overlapped"]]
+        print(f"phase6 spgemm d={d}: exchange {row['exchange']!r}, max_send "
+              f"{row['max_send']}, plan-time bytes per multiply: selective "
+              f"{row['selective_wire_bytes_total']}, useful "
+              f"{row['selective_useful_bytes_total']}, all-gather "
+              f"{row['allgather_bytes_total']}; projected (data-sheet "
+              f"model) compute_s {pr['compute_s']!r}, nvlink_s "
+              f"{pr['nvlink_s']!r}, efficiency {pr['efficiency_serialized']!r}"
+              f" / {pr['efficiency_overlapped']!r}; plan "
+              f"{row['plan_seconds_host']!r} s (host)")
+    check(all(0 < e <= 1 for e in effs),
+          f"phase 6: a projected efficiency outside (0, 1]: {effs}")
+    for what, ms in (("spmv", rep["spmv"][0].get("measured")),
+                     ("spgemm", gem[1].get("measured"))):
+        check(ms is not None, f"phase 6: no measured d = 1 {what} row")
+        check(ms["ok"] and ms["max_rel_err"] < ORACLE_REL,
+              f"phase 6 {what} d = 1: error {ms['max_rel_err']} vs scipy")
+        check(ms["backend"] == "nccl" and ms["world"] == 1,
+              f"phase 6 {what}: measured on {ms['backend']} world "
+              f"{ms['world']}")
+        print(f"phase6 {what} d=1 measured by build_report (NCCL world 1, "
+              f"{ms['exchange']!r}): event median of {ITERS} "
+              f"{ms['seconds'] * 1e3!r} ms, max_rel_err vs scipy float64 "
+              f"{ms['max_rel_err']!r} [{card}]")
+    check(t_roof <= rep["spmv"][0]["measured"]["seconds"],
+          "phase 6: a time below the HBM roofline")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scaling.json")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "bmsparse_tpu_torch.cli.scaling",
+             "--synthetic", "band", "--report", path],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        t_cli = time.perf_counter() - t0
+        for line in res.stdout.splitlines():
+            print(f"phase6 cli.scaling: {line}")
+        check(res.returncode == 0,
+              f"cli.scaling: rc {res.returncode}\n{res.stderr[-4000:]}")
+        with open(path) as f:
+            cli_rep = json.load(f)
+    n_cli = cli_rep["matrix"]["shape"][0]
+    print(f"phase6 cli.scaling --synthetic band (n {n_cli}): rc 0 in "
+          f"{t_cli:.1f} s, report written with "
+          f"{len(cli_rep['spmv'])} SpMV and {len(cli_rep['spgemm'])} SpGEMM "
+          f"rows [{card}]")
+    print(f"phase6 seconds: {time.perf_counter() - t_phase:.1f} [{card}]")
     return launches, errs
 
 
@@ -2096,6 +2356,12 @@ def main() -> int:
     for k, n in multi_launches.items():
         launches[k] += n
         errs[k] = max(errs[k], multi_errs[k])
+    scaling_launches, scaling_errs = phase6_scaling(torch, card)
+    print(f"phase6 launches on the scaling report's measured rows: "
+          f"{scaling_launches}")
+    for k, n in scaling_launches.items():
+        launches[k] += n
+        errs[k] = max(errs[k], scaling_errs[k])
 
     replaces = {
         "dia_spmv": ("bmsparse_tpu_torch/csrc/dia_spmv.cu",

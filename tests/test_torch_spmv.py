@@ -265,6 +265,7 @@ def test_port_imports_no_jax():
         "import bmsparse_tpu_torch.parallel.partition, bmsparse_tpu_torch.parallel.plan\n"
         "import bmsparse_tpu_torch.parallel.spmv, bmsparse_tpu_torch.parallel.spgemm\n"
         "import bmsparse_tpu_torch.parallel.product, bmsparse_tpu_torch.parallel.dryrun\n"
+        "import bmsparse_tpu_torch.cli.scaling\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bmsparse_tpu' or m.startswith('bmsparse_tpu.')]\n"
         "assert not bad, bad\n"

@@ -1,8 +1,9 @@
 """The port's user surfaces on the card: the device converter against the
 host converter, container and plan persistence onto the card, CSR and
 csr_spmv, the SpMV and SpGEMM CLIs with --device cuda (float64 too, which
-impl="auto" runs on the plain path), and float64 plans and operands under
-impl="auto" and "cuda". Every case is marked
+impl="auto" runs on the plain path), float64 plans and operands under
+impl="auto" and "cuda", and the scaling report's measured d = 1 row over
+NCCL. Every case is marked
 `gpu` and skips without a CUDA device; they import no JAX, so they run on
 a machine without it:
     python -m pytest tests/test_torch_surfaces.py --noconftest -m gpu
@@ -136,3 +137,21 @@ def test_float64_auto_plain_and_cuda_raises_on_card(cuda):
                                   ) < 1e-12
     with pytest.raises(NotImplementedError, match="float64"):
         bt.spgemm(m, mt, impl="cuda")
+
+
+@pytest.mark.gpu
+def test_measured_row_on_the_card(cuda):
+    """d = 1 over NCCL on the card: checked against scipy, timed by CUDA
+    events; the model names this card."""
+    from bmsparse_tpu_torch.cli import scaling
+
+    mt = bt.coo_to_bmsparse(*scaling.synthetic("band", 65536), device="cpu")
+    v = np.random.default_rng(1).standard_normal(65536).astype(np.float32)
+    rep = scaling.build_report(mt, [1, 2], v, iters=3, device="cuda")
+    ms = rep["spmv"][0]["measured"]
+    assert ms["ok"] and ms["max_rel_err"] < 1e-4
+    assert ms["backend"] == "nccl" and ms["seconds"] > 0
+    assert ms["device"] == torch.cuda.get_device_name(0)
+    assert rep["spgemm"][0]["d"] == 1 and rep["spgemm"][0]["measured"]["ok"]
+    assert rep["model"]["card"] == torch.cuda.get_device_name(0)
+    assert ("measured" in rep["spmv"][1]) == (torch.cuda.device_count() >= 2)
