@@ -38,24 +38,29 @@ def build_spd_stencil(n: int):
 def cg(p, b: torch.Tensor, iters: int):
     """Fixed-iteration CG on a Prepared bmSparse matrix. Returns x and the
     squared residual norm after each iteration, (iters,), both on b's
-    device; nothing inside the loop reads a value back to the host."""
+    device; nothing inside the loop reads a value back to the host.
+    Spans: the solve (`cg`) and each iteration's vector ops after its
+    spmv (`cg.update`)."""
     from ..ops.spmv import spmv
+    from ..utils.timing import span
 
-    x = torch.zeros_like(b)
-    r = b.clone()
-    pv = b.clone()
-    rs = torch.dot(r, r)
-    hist = []
-    for _ in range(iters):
-        ap = spmv(p, pv)
-        alpha = rs / torch.clamp(torch.dot(pv, ap), min=TINY)
-        x = x + alpha * pv
-        r = r - alpha * ap
-        rs_new = torch.dot(r, r)
-        pv = r + (rs_new / torch.clamp(rs, min=TINY)) * pv
-        rs = rs_new
-        hist.append(rs_new)
-    return x, torch.stack(hist)
+    with span("cg"):
+        x = torch.zeros_like(b)
+        r = b.clone()
+        pv = b.clone()
+        rs = torch.dot(r, r)
+        hist = []
+        for _ in range(iters):
+            ap = spmv(p, pv)
+            with span("cg.update"):
+                alpha = rs / torch.clamp(torch.dot(pv, ap), min=TINY)
+                x = x + alpha * pv
+                r = r - alpha * ap
+                rs_new = torch.dot(r, r)
+                pv = r + (rs_new / torch.clamp(rs, min=TINY)) * pv
+                rs = rs_new
+                hist.append(rs_new)
+        return x, torch.stack(hist)
 
 
 def setup(n: int, device="cuda"):

@@ -43,6 +43,7 @@ import torch
 
 from ..config import BLOCK_HEIGHT
 from ..format.bmsparse import BmSparse, cdiv
+from ..utils.timing import span
 from . import route
 from .cuda import sell_kernel as _sk
 
@@ -483,6 +484,11 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     A plan with either option or a fixed sell_unit keeps the fixed K
     ladder and gathers every SELL group per slot, and stream is ignored
     (no stream tier), as in the JAX package.
+
+    The host seconds of its phases add up in utils.timing.kept under
+    "plan.coo" (the matrix's coordinates), "plan.dia" (tier 1),
+    "plan.stream" (the stream routing) and "plan.sell" (the SELL and
+    overflow tiers and their packs).
     """
     if isinstance(m, Prepared):
         return m
@@ -497,36 +503,38 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     np_dtype = _host_dtype(dtype)
     itemsize = dtype.itemsize
 
-    rows, cols, vals = m.generate_coo(order="any")
-    rows = rows.astype(np.int64)
-    cols = cols.astype(np.int64)
-    vals = vals.astype(np_dtype)
+    with span("plan.coo", keep=True):
+        rows, cols, vals = m.generate_coo(order="any")
+        rows = rows.astype(np.int64)
+        cols = cols.astype(np.int64)
+        vals = vals.astype(np_dtype)
     nbr = m.block_rows
     nbc = m.block_cols
     npad = nbr * BLOCK_HEIGHT
     forced_dia, forced_groups = force_layout if force_layout else (None, None)
 
-    # ---- Tier 1: extract dense diagonals --------------------------------
-    dia = None
-    dia_offsets: tuple = ()
-    if len(rows) or forced_dia:
-        if forced_dia is not None:
-            offs = np.asarray(forced_dia, np.int64)
-        else:
-            offs = _choose_diagonals(rows, cols, m.num_rows, m.num_cols,
-                                     col_shift)
-        if len(offs):
-            dev = cols - rows - col_shift
-            on_dia = np.isin(dev, offs)
-            by_off = np.argsort(offs, kind="stable")
-            d_slot = by_off[np.searchsorted(offs[by_off], dev[on_dia])]
-            r128 = cdiv(npad, 128)
-            dia_np = np.zeros((len(offs), r128, 128), np_dtype)
-            r_dia = rows[on_dia]
-            dia_np[d_slot, r_dia // 128, r_dia % 128] = vals[on_dia]
-            dia = torch.from_numpy(dia_np).to(dtype)
-            dia_offsets = tuple(int(o) for o in offs)
-            rows, cols, vals = rows[~on_dia], cols[~on_dia], vals[~on_dia]
+    with span("plan.dia", keep=True):
+        # ---- Tier 1: extract dense diagonals --------------------------------
+        dia = None
+        dia_offsets: tuple = ()
+        if len(rows) or forced_dia:
+            if forced_dia is not None:
+                offs = np.asarray(forced_dia, np.int64)
+            else:
+                offs = _choose_diagonals(rows, cols, m.num_rows, m.num_cols,
+                                         col_shift)
+            if len(offs):
+                dev = cols - rows - col_shift
+                on_dia = np.isin(dev, offs)
+                by_off = np.argsort(offs, kind="stable")
+                d_slot = by_off[np.searchsorted(offs[by_off], dev[on_dia])]
+                r128 = cdiv(npad, 128)
+                dia_np = np.zeros((len(offs), r128, 128), np_dtype)
+                r_dia = rows[on_dia]
+                dia_np[d_slot, r_dia // 128, r_dia % 128] = vals[on_dia]
+                dia = torch.from_numpy(dia_np).to(dtype)
+                dia_offsets = tuple(int(o) for o in offs)
+                rows, cols, vals = rows[~on_dia], cols[~on_dia], vals[~on_dia]
 
     sell_dense: list = []
     sell_bcol: list = []
@@ -541,92 +549,94 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     ovf_ks: list = []
     ovf_gather = None
     ovf_rows = 0
-    # the single-device plan: automatic slot width, adaptive K classes,
-    # window plans, overflow and stream tiers
-    single = forced_groups is None and col_shift == 0 and sell_unit is None
-    nblk = nwin = 0
-    if single and len(rows):
-        br0 = rows >> 3
-        nblk = len(np.unique(br0 * np.int64(nbc) + (cols >> 3)))
-        nwin = len(np.unique(br0 * np.int64(cdiv(nbc, 8)) + (cols >> 6)))
+    with span("plan.stream", keep=True):
+        # the single-device plan: automatic slot width, adaptive K classes,
+        # window plans, overflow and stream tiers
+        single = forced_groups is None and col_shift == 0 and sell_unit is None
+        nblk = nwin = 0
+        if single and len(rows):
+            br0 = rows >> 3
+            nblk = len(np.unique(br0 * np.int64(nbc) + (cols >> 3)))
+            nwin = len(np.unique(br0 * np.int64(cdiv(nbc, 8)) + (cols >> 6)))
 
-    # ---- Stream tier: scattered rows with at most K_CAP entries --------
-    # Decided before the block sort, while the scalar arrays are aligned.
-    # The block tiers pay a slab per slot plus one v-segment gather index;
-    # the stream tier pays its tables' bytes (route.stream_cost_estimate).
-    stream_plan = None
-    if (single and dtype == torch.float32 and stream != "off"
-            and len(rows) and (len(rows) >= 4096 or stream == "force")):
-        stream_plan, heavy = _route_stream(
-            rows, cols, vals, m, nblk, nwin, itemsize, np_dtype,
-            force=stream == "force")
-        if stream_plan is not None:
-            rows, cols, vals = rows[heavy], cols[heavy], vals[heavy]
+        # ---- Stream tier: scattered rows with at most K_CAP entries --------
+        # Decided before the block sort, while the scalar arrays are aligned.
+        # The block tiers pay a slab per slot plus one v-segment gather index;
+        # the stream tier pays its tables' bytes (route.stream_cost_estimate).
+        stream_plan = None
+        if (single and dtype == torch.float32 and stream != "off"
+                and len(rows) and (len(rows) >= 4096 or stream == "force")):
+            stream_plan, heavy = _route_stream(
+                rows, cols, vals, m, nblk, nwin, itemsize, np_dtype,
+                force=stream == "force")
+            if stream_plan is not None:
+                rows, cols, vals = rows[heavy], cols[heavy], vals[heavy]
 
-    # ---- Tier 2: SELL-C-128 over the remaining blocks -------------------
-    # Slot granularity: when a block row's columns cluster, merging its
-    # blocks into 64-scalar column-window super-slots (cw = 64) divides
-    # the per-slot v reads by the merge factor; scattered structures keep
-    # cw = 8, where the 8x denser coefficient slabs would cost more than
-    # the reads they save (so do the few deep rows a stream plan leaves).
-    cw = 8
-    if sell_unit is not None:
-        cw = int(sell_unit)
-    elif single and len(rows) and stream_plan is None:
-        if nblk >= 2 * nwin and nwin * 512 * itemsize <= (2 << 30):
-            cw = 64
+    with span("plan.sell", keep=True):
+        # ---- Tier 2: SELL-C-128 over the remaining blocks -------------------
+        # Slot granularity: when a block row's columns cluster, merging its
+        # blocks into 64-scalar column-window super-slots (cw = 64) divides
+        # the per-slot v reads by the merge factor; scattered structures keep
+        # cw = 8, where the 8x denser coefficient slabs would cost more than
+        # the reads they save (so do the few deep rows a stream plan leaves).
+        cw = 8
+        if sell_unit is not None:
+            cw = int(sell_unit)
+        elif single and len(rows) and stream_plan is None:
+            if nblk >= 2 * nwin and nwin * 512 * itemsize <= (2 << 30):
+                cw = 64
 
-    if len(rows) or forced_groups:
-        ncu = cdiv(m.num_cols, cw)      # column units (cw scalars each)
-        br = rows >> 3
-        bc = cols // cw
-        # slot order (j, i): row j*8+i of the slab, so the sum over the
-        # window's cw scalars runs over contiguous 8-row faces
-        slot = (cols % cw) * 8 + (rows & 7)
-        bid = br * ncu + bc
-        order = np.argsort(bid, kind="stable")
-        br, bc, slot, vals, bid = (
-            x[order] for x in (br, bc, slot, vals, bid)
-        )
-        ublocks, binv = np.unique(bid, return_inverse=True)
-        ubr = (ublocks // ncu).astype(np.int64)
-        ubc = (ublocks % ncu).astype(np.int64)
-
-        # Window eligibility: automatic slot width, f32/bf16/f16 plans.
-        # The SELL-sigma order's secondary key is then the row's minimum
-        # block column, so that equal-count rows cluster by column window
-        # and per-chunk windows come out tight.
-        win_ok = single and itemsize in (2, 4)
-
-        # Core/overflow split: keep each row's densest column window in
-        # the main tier; far outliers move to the overflow mini-SELL so
-        # they cannot keep their chunk out of the windowed kernel.
-        # Skipped when nothing overflows, or when >50% of slots would.
-        core_idx = np.arange(len(ublocks))
-        ovf_idx = None
-        if win_ok and len(ublocks):
-            core_mask = _core_window_mask(
-                ublocks, ubr, ubc, max(_sk.WINDOW_UNITS - 128, 1), ncu)
-            n_ovf = int((~core_mask).sum())
-            if 0 < n_ovf <= 0.5 * len(ublocks):
-                core_idx = np.nonzero(core_mask)[0]
-                ovf_idx = np.nonzero(~core_mask)[0]
-
-        (sell_dense, sell_bcol, sell_ks, sell_ws, sell_rel,
-         og, sell_rows) = _build_sell_tier(
-            core_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
-            forced_groups=forced_groups, adaptive=single,
-            secondary_wlo=single, win_ok=win_ok, elig_split=win_ok,
-        )
-        out_gather = torch.from_numpy(og)
-        sell_pack = [None if rel is None else _sk.pack_group(d, rel, ws)
-                     for d, rel, ws in zip(sell_dense, sell_rel, sell_ws)]
-        if ovf_idx is not None:
-            (ovf_dense, ovf_bcol, ovf_ks, _, _,
-             og2, ovf_rows) = _build_sell_tier(
-                ovf_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
+        if len(rows) or forced_groups:
+            ncu = cdiv(m.num_cols, cw)      # column units (cw scalars each)
+            br = rows >> 3
+            bc = cols // cw
+            # slot order (j, i): row j*8+i of the slab, so the sum over the
+            # window's cw scalars runs over contiguous 8-row faces
+            slot = (cols % cw) * 8 + (rows & 7)
+            bid = br * ncu + bc
+            order = np.argsort(bid, kind="stable")
+            br, bc, slot, vals, bid = (
+                x[order] for x in (br, bc, slot, vals, bid)
             )
-            ovf_gather = torch.from_numpy(og2)
+            ublocks, binv = np.unique(bid, return_inverse=True)
+            ubr = (ublocks // ncu).astype(np.int64)
+            ubc = (ublocks % ncu).astype(np.int64)
+
+            # Window eligibility: automatic slot width, f32/bf16/f16 plans.
+            # The SELL-sigma order's secondary key is then the row's minimum
+            # block column, so that equal-count rows cluster by column window
+            # and per-chunk windows come out tight.
+            win_ok = single and itemsize in (2, 4)
+
+            # Core/overflow split: keep each row's densest column window in
+            # the main tier; far outliers move to the overflow mini-SELL so
+            # they cannot keep their chunk out of the windowed kernel.
+            # Skipped when nothing overflows, or when >50% of slots would.
+            core_idx = np.arange(len(ublocks))
+            ovf_idx = None
+            if win_ok and len(ublocks):
+                core_mask = _core_window_mask(
+                    ublocks, ubr, ubc, max(_sk.WINDOW_UNITS - 128, 1), ncu)
+                n_ovf = int((~core_mask).sum())
+                if 0 < n_ovf <= 0.5 * len(ublocks):
+                    core_idx = np.nonzero(core_mask)[0]
+                    ovf_idx = np.nonzero(~core_mask)[0]
+
+            (sell_dense, sell_bcol, sell_ks, sell_ws, sell_rel,
+             og, sell_rows) = _build_sell_tier(
+                core_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
+                forced_groups=forced_groups, adaptive=single,
+                secondary_wlo=single, win_ok=win_ok, elig_split=win_ok,
+            )
+            out_gather = torch.from_numpy(og)
+            sell_pack = [None if rel is None else _sk.pack_group(d, rel, ws)
+                         for d, rel, ws in zip(sell_dense, sell_rel, sell_ws)]
+            if ovf_idx is not None:
+                (ovf_dense, ovf_bcol, ovf_ks, _, _,
+                 og2, ovf_rows) = _build_sell_tier(
+                    ovf_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
+                )
+                ovf_gather = torch.from_numpy(og2)
 
     return Prepared(
         m=m, plan_dtype=_dtype_name(dtype),

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..format.bmsparse import BmSparse
-from ..utils.timing import PhaseTimer
+from ..utils.timing import PhaseTimer, span
 from . import spgemm as sg
 
 
@@ -69,18 +69,21 @@ class PreparedProduct:
         a/b: optional operands (BmSparse or Prepared) with new values and
         the same structure; default the ones captured at prepare time.
         Block count, nnz and shape are always checked, and the bitmaps
-        too where both operands lie on the CPU.
+        too where both operands lie on the CPU. Spans: the call
+        (`product`) and the operands' decompress (`product.decompress`).
         """
         p = self.plan
-        a_flat = p.a_flat if a is None else self._operand(
-            a, p.a, p.a_flat, self._fp_a, "A")
-        b_flat = p.b_flat if b is None else self._operand(
-            b, p.b, p.b_flat, self._fp_b, "B")
-        kernels = sg._use_kernels(
-            self.impl, a_flat.device,
-            torch.promote_types(a_flat.dtype, b_flat.dtype))
-        return sg._assemble_c(
-            p, sg._numeric_from_plan(p, kernels, a_flat, b_flat))
+        with span("product"):
+            with span("product.decompress"):
+                a_flat = p.a_flat if a is None else self._operand(
+                    a, p.a, p.a_flat, self._fp_a, "A")
+                b_flat = p.b_flat if b is None else self._operand(
+                    b, p.b, p.b_flat, self._fp_b, "B")
+            kernels = sg._use_kernels(
+                self.impl, a_flat.device,
+                torch.promote_types(a_flat.dtype, b_flat.dtype))
+            return sg._assemble_c(
+                p, sg._numeric_from_plan(p, kernels, a_flat, b_flat))
 
 
 def prepare_product(a, b, impl: str | None = None) -> PreparedProduct:

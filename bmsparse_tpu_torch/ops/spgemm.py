@@ -71,7 +71,7 @@ import torch
 from ..config import bucket_size, get_config, round_up
 from ..format import bitmap as bm
 from ..format.bmsparse import BmSparse
-from ..utils.timing import PhaseTimer
+from ..utils.timing import PhaseTimer, span
 from .cuda import compress_kernel as _ck
 from .cuda import spgemm_kernel as _sk
 from .cuda import spgemm_window_kernel as _wk
@@ -684,15 +684,18 @@ def _numeric_stage(a_flat, b_flat, launches, rows: int, sig_hi, sig_lo,
                    sig_off, groups: tuple, kernels: bool, nnz_pad: int,
                    compress: str = "scatter", g_tbl=None):
     """The whole numeric phase (products, K-sums, compress) on plan data;
-    `compress` is the plan's compress mode."""
-    c_rows = _numeric_products(a_flat, b_flat, launches, rows, kernels)
-    if compress == "fold":
-        return _compress_fold(c_rows, sig_hi, sig_lo, sig_off, g_tbl,
-                              nnz_pad)
-    if compress == "mxu":
-        return _compress_mxu(c_rows, sig_hi, sig_lo, sig_off, groups,
-                             nnz_pad, kernels)
-    return _compress_rows(c_rows, sig_hi, sig_lo, sig_off, nnz_pad)
+    `compress` is the plan's compress mode. Spans: the products
+    (`spgemm.products`) and the compress (`spgemm.compress`)."""
+    with span("spgemm.products"):
+        c_rows = _numeric_products(a_flat, b_flat, launches, rows, kernels)
+    with span("spgemm.compress"):
+        if compress == "fold":
+            return _compress_fold(c_rows, sig_hi, sig_lo, sig_off, g_tbl,
+                                  nnz_pad)
+        if compress == "mxu":
+            return _compress_mxu(c_rows, sig_hi, sig_lo, sig_off, groups,
+                                 nnz_pad, kernels)
+        return _compress_rows(c_rows, sig_hi, sig_lo, sig_off, nnz_pad)
 
 
 # ---------------------------------------------------------------------------

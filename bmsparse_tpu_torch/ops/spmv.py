@@ -39,6 +39,7 @@ import torch
 
 from ..config import BLOCK_HEIGHT, BLOCK_WIDTH, get_config
 from ..format.bmsparse import BmSparse, cdiv
+from ..utils.timing import span
 from .cuda.sell_kernel import sell_window, sell_window_plain
 from .cuda.spmv_kernel import dia_spmv, dia_spmv_plain
 from .route import stream_apply
@@ -86,39 +87,50 @@ def _spmv_xla(m: BmSparse, v: torch.Tensor) -> torch.Tensor:
 
 
 def _spmv_prepared(p, v: torch.Tensor, impl: str) -> torch.Tensor:
-    """Tiered SpMV on a Prepared plan (see ops/plan.py)."""
-    m = p.m
-    cdt = torch.promote_types(getattr(torch, p.plan_dtype), torch.float32)
-    kernels = _use_kernels(impl, v.device, cdt)
-    if v.device != m.device:
-        raise ValueError(f"plan on {m.device} but v on {v.device}")
-    nbr = m.block_rows
-    nbc = m.block_cols
-    npad = nbr * BLOCK_HEIGHT
-    n = nbc * BLOCK_WIDTH
-    vpad = torch.zeros(n, dtype=cdt, device=v.device)
-    k = min(n, v.shape[0])
-    vpad[:k] = v[:k]
+    """Tiered SpMV on a Prepared plan (see ops/plan.py). Spans: the call
+    (`spmv`), each tier's own call inside it (`spmv.dia`, `.sell`,
+    `.overflow`, `.stream`); the fills, copies, adds and the cast around
+    them are the call's own."""
+    with span("spmv"):
+        m = p.m
+        cdt = torch.promote_types(getattr(torch, p.plan_dtype),
+                                  torch.float32)
+        kernels = _use_kernels(impl, v.device, cdt)
+        if v.device != m.device:
+            raise ValueError(f"plan on {m.device} but v on {v.device}")
+        nbr = m.block_rows
+        nbc = m.block_cols
+        npad = nbr * BLOCK_HEIGHT
+        n = nbc * BLOCK_WIDTH
+        vpad = torch.zeros(n, dtype=cdt, device=v.device)
+        k = min(n, v.shape[0])
+        vpad[:k] = v[:k]
 
-    u = torch.zeros(npad, dtype=cdt, device=v.device)
-    if p.dia is not None:
-        u += dia_apply(p.dia, p.dia_offsets, vpad, kernel=kernels
-                       ).reshape(-1)[:npad]
-    if p.sell_ks:
-        u += sell_apply(
-            p.sell_dense, p.sell_bcol, p.out_gather, vpad, nbc,
-            sell_pack=p.sell_pack, kernel=kernels,
-        ).reshape(npad)
-    if p.ovf_ks:
-        # per-row outlier slots: few and scattered by construction, so
-        # they are gathered per slot
-        u += sell_apply(
-            p.ovf_dense, p.ovf_bcol, p.ovf_gather, vpad, nbc,
-        ).reshape(npad)
-    if p.stream is not None:
-        u_s = stream_apply(p.stream, vpad, kernels=kernels)
-        u[: u_s.shape[0]] += u_s
-    return u[: m.num_rows].to(v.dtype)
+        u = torch.zeros(npad, dtype=cdt, device=v.device)
+        if p.dia is not None:
+            with span("spmv.dia"):
+                u_t = dia_apply(p.dia, p.dia_offsets, vpad, kernel=kernels)
+            u += u_t.reshape(-1)[:npad]
+        if p.sell_ks:
+            with span("spmv.sell"):
+                u_t = sell_apply(
+                    p.sell_dense, p.sell_bcol, p.out_gather, vpad, nbc,
+                    sell_pack=p.sell_pack, kernel=kernels,
+                )
+            u += u_t.reshape(npad)
+        if p.ovf_ks:
+            # per-row outlier slots: few and scattered by construction, so
+            # they are gathered per slot
+            with span("spmv.overflow"):
+                u_t = sell_apply(
+                    p.ovf_dense, p.ovf_bcol, p.ovf_gather, vpad, nbc,
+                )
+            u += u_t.reshape(npad)
+        if p.stream is not None:
+            with span("spmv.stream"):
+                u_t = stream_apply(p.stream, vpad, kernels=kernels)
+            u[: u_t.shape[0]] += u_t
+        return u[: m.num_rows].to(v.dtype)
 
 
 def _use_kernels(impl: str, device: torch.device, dtype: torch.dtype) -> bool:

@@ -12,6 +12,11 @@ Like the package's other entry points it times on the card unless the
 caller asks for the CPU, and raises where there is no card.
 
 `sync` waits for a result on a CUDA device (JAX's block_until_ready).
+
+`span` names a piece of the program's work on the profiler's timeline
+(`bmsp.<name>`, on the clock of the device's events) while a profiler
+records, and costs one check when none does. Set-up phases also keep
+their host seconds in `kept`, profiler or not.
 """
 
 from __future__ import annotations
@@ -23,6 +28,17 @@ from typing import Any
 
 import torch
 
+# A function-scope range, as an operator's: a record_function range is a
+# user annotation, which the profiler also copies onto the device's
+# timeline, where a reader that cannot see an event's type (torch 2.11's
+# kineto events have none) would count it as device work.
+_Range = torch._C._profiler._RecordFunctionFast
+# host seconds of the set-up phases opened with span(name, keep=True),
+# summed over the process's calls, by name
+kept: dict[str, float] = {}
+
+_OFF = contextlib.nullcontext()
+
 
 def sync(x: Any = None):
     """Wait for the device work behind x (a tensor, or anything with a
@@ -32,6 +48,27 @@ def sync(x: Any = None):
     if device is not None and torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return x
+
+
+def span(name: str, keep: bool = False):
+    """A context naming the work inside it `bmsp.<name>` on the timeline
+    of a profiler that records; where none records, one shared no-op
+    context, with no range and no clock read.
+    keep=True (set-up phases only): also add the block's host seconds to
+    kept[name], whether or not a profiler records."""
+    if keep:
+        return _kept(name)
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return _Range("bmsp." + name)
+
+
+@contextlib.contextmanager
+def _kept(name: str):
+    t0 = time.perf_counter()
+    with span(name):
+        yield
+    kept[name] = kept.get(name, 0.0) + time.perf_counter() - t0
 
 
 class PhaseTimer:
