@@ -16,6 +16,7 @@ import torch
 
 from .format import bitmap as bm
 from .format.bmsparse import BmSparse
+from .ops.cuda.sell_gather_kernel import pack_from_slabs
 from .ops.cuda.sell_kernel import pack_group
 from .ops.cuda.spgemm_window_kernel import _SENT_REL
 from .ops.plan import Prepared
@@ -69,7 +70,8 @@ def prepared_from_numpy(m: BmSparse, arrays: Mapping[str, Any],
     None), the statics dia_offsets, sell_ks, sell_rows, ovf_ks, ovf_rows,
     and optionally `stream`: a mapping of the StreamPlan fields (arrays
     and statics) or None. The windowed groups' packs (sell_pack) are
-    built here from their slabs, as prepare() builds them."""
+    built here from their slabs, as prepare() builds them, and so are the
+    gathered groups' (sell_gpack, ovf_gpack)."""
     device = m.device if device is None else device
     fields: dict = {f: tensor_from_numpy(arrays.get(f), device)
                     for f in _PLAN_TENSORS}
@@ -84,6 +86,13 @@ def prepared_from_numpy(m: BmSparse, arrays: Mapping[str, Any],
         None if rel is None else pack_group(d, rel, ws)
         for d, rel, ws in zip(fields["sell_dense"], fields["sell_rel"],
                               fields["sell_ws"]))
+    for tier, windowed in (("sell", fields["sell_pack"]), ("ovf", ())):
+        dense = fields[f"{tier}_dense"]
+        gathered = [g for g in range(len(dense))
+                    if g >= len(windowed) or windowed[g] is None]
+        fields[f"{tier}_gpack"] = pack_from_slabs(
+            dense, fields[f"{tier}_bcol"], gathered,
+            fields[f"{tier}_rows"]).to(device) if gathered else None
     st = arrays.get("stream")
     if st is not None:
         fields["stream"] = StreamPlan(

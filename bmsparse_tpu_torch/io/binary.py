@@ -113,13 +113,15 @@ _PLAN_DUMP_VERSION = 1
 
 
 def _cpu(x):
-    """Tensors moved to the CPU, in tuples and in a SellPack's fields (a
-    dict of them, which torch.load's weights_only mode accepts)."""
+    """Tensors moved to the CPU, in tuples and in a SellPack's or a
+    GatherPack's fields (a dict of them, which torch.load's weights_only
+    mode accepts)."""
+    from ..ops.cuda.sell_gather_kernel import GatherPack
     from ..ops.cuda.sell_kernel import SellPack
 
     if isinstance(x, tuple):
         return tuple(_cpu(t) for t in x)
-    if isinstance(x, SellPack):
+    if isinstance(x, (SellPack, GatherPack)):
         return {k: _cpu(t) for k, t in x.state().items()}
     return x.cpu() if isinstance(x, torch.Tensor) else x
 
@@ -154,6 +156,7 @@ def load_prepared(path: str, m: BmSparse):
     m's device in one pass. Returns None when the dump's version or layout
     stamp does not match the running code: callers fall back to
     prepare(m)."""
+    from ..ops.cuda.sell_gather_kernel import GatherPack
     from ..ops.cuda.sell_kernel import SellPack
     from ..ops.plan import PLAN_LAYOUT_VERSION, Prepared
     from ..ops.route import StreamPlan
@@ -166,4 +169,7 @@ def load_prepared(path: str, m: BmSparse):
     fields = dict(d["fields"])
     fields["sell_pack"] = tuple(None if x is None else SellPack(**x)
                                 for x in fields["sell_pack"])
+    for f in ("sell_gpack", "ovf_gpack"):
+        if fields[f] is not None:
+            fields[f] = GatherPack(**fields[f])
     return Prepared(m=m, stream=stream, **fields).to(m.device)

@@ -122,6 +122,9 @@ def load() -> ctypes.CDLL:
     lib.bmsp_sell_window.argtypes = [p, i32, p, p, p, p, p, i64, i64, i64,
                                      p, p]
     lib.bmsp_sell_window.restype = i32
+    lib.bmsp_sell_gather.argtypes = [p, i32, p, p, i64, p, p, i64, p, i64,
+                                     p, p, i64, p]
+    lib.bmsp_sell_gather.restype = i32
     for fn in (lib.bmsp_numeric_sell, lib.bmsp_numeric_window):
         fn.argtypes = [p, p, i32, i64, i64, p, p, p, i64, i64, p, p]
         fn.restype = i32

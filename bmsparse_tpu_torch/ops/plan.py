@@ -16,10 +16,12 @@ Tier 2 — SELL (sliced-ELL over slots of 8 rows x cw columns, C = 128
   Groups whose chunks each fit one WINDOW_UNITS-wide column window carry
   a window plan (sell_ws, sell_rel) and a compact pack of their nonzeros
   (sell_pack) for the windowed kernel (csrc/sell_window.cu); the others
-  gather v per slot.
+  are packed together, each nonzero once (sell_gpack), for the gathered
+  groups' kernel (csrc/sell_gather.cu).
 
 Overflow — a mini-SELL of each row's far outlier slots, so that a few
-  long links do not keep their chunk out of the windowed kernel.
+  long links do not keep their chunk out of the windowed kernel; its
+  groups are packed as the gathered ones are (ovf_gpack).
 
 Stream — scattered structures (web graphs, uniform random matrices): the
   rows with at most K_CAP entries go to the stream tier (ops/route.py,
@@ -46,13 +48,15 @@ from ..format.bmsparse import BmSparse, cdiv
 from ..utils.timing import span
 from . import route
 from .cuda import sell_kernel as _sk
+from .cuda.sell_gather_kernel import GatherPack, gather_pack, pack_from_slabs
 
 # The port's own stamp on plan dumps (io/binary.save_prepared): a dump
 # loads only under the stamp it was written with. Bump it whenever a
 # field of Prepared or StreamPlan changes. It starts at the JAX package's
 # layout 10, whose arrays the port's plans equal array for array; 11
-# adds the windowed groups' packs (sell_pack).
-PLAN_LAYOUT_VERSION = 11
+# adds the windowed groups' packs (sell_pack), 12 the gathered groups'
+# (sell_gpack, ovf_gpack).
+PLAN_LAYOUT_VERSION = 12
 
 SELL_C = 128                 # lanes per chunk
 DIA_MIN_FILL = 0.15          # min diagonal fill to justify a dense pass
@@ -158,6 +162,10 @@ class Prepared:
     # sell_pack[g]: the windowed group's nonzeros for the kernel
     # (ops/cuda/sell_kernel.SellPack), None where the group gathers
     sell_pack: tuple = ()
+    # the nonzeros of every group without a pack, for the gathered groups'
+    # kernel (ops/cuda/sell_gather_kernel.GatherPack), None where there is
+    # no such group
+    sell_gpack: GatherPack | None = None
     # block-row r's SELL output lives at stacked row out_gather[r]; rows
     # with no SELL slots point past the end (read as zero).
     out_gather: torch.Tensor | None = None   # (block_rows,) int32
@@ -169,6 +177,7 @@ class Prepared:
     ovf_ks: tuple = ()
     ovf_gather: torch.Tensor | None = None   # (block_rows,) int32
     ovf_rows: int = 0
+    ovf_gpack: GatherPack | None = None
 
     # --- Stream tier: the routing plan of the scattered rows (float32) ---
     stream: route.StreamPlan | None = None
@@ -187,8 +196,8 @@ class Prepared:
             stream=None if self.stream is None else self.stream.to(device),
             **{f: mv(getattr(self, f))
                for f in ("dia", "sell_dense", "sell_bcol", "sell_ws",
-                         "sell_rel", "sell_pack", "out_gather", "ovf_dense",
-                         "ovf_bcol", "ovf_gather")})
+                         "sell_rel", "sell_pack", "sell_gpack", "out_gather",
+                         "ovf_dense", "ovf_bcol", "ovf_gather", "ovf_gpack")})
 
     @property
     def dense_flat(self) -> torch.Tensor:
@@ -264,8 +273,10 @@ def _build_sell_tier(
     class into an eligible group (gets a ws/rel window plan) and a
     remainder group (gathered per slot).
 
-    Returns (dense, bcol, ks, ws, rel, out_gather_np, rows_total), the
-    per-group arrays as CPU tensors.
+    Returns (dense, bcol, ks, ws, rel, out_gather_np, rows_total, gpack):
+    the per-group arrays as CPU tensors, and the GatherPack of the groups
+    left without a window plan (None where there is none), built from the
+    scalars' coordinates as they are scattered into the slabs.
     """
     np_dtype = _host_dtype(dtype)
     itemsize = dtype.itemsize
@@ -360,6 +371,11 @@ def _build_sell_tier(
     ks_l: list = []
     ws_l: list = []
     rel_l: list = []
+    # the gathered groups' scalars: pack row, scalar column, value
+    g_row: list = []
+    g_col: list = []
+    g_val: list = []
+    g_rows: list = []
     for g, (kg, cap, gelig) in enumerate(groups):
         sel = group_of_chunk[chunk] == g if nchunks else np.zeros((0,), bool)
         ub_sel = np.nonzero(sel)[0]
@@ -405,8 +421,27 @@ def _build_sell_tier(
                 ws_g, rel_g = torch.from_numpy(ws), torch.from_numpy(rel)
         ws_l.append(ws_g)
         rel_l.append(rel_g)
+        if ws_g is None:
+            roff = sum(len(x) for x in g_rows)
+            g_rows.append(np.arange(bases[g] * 8, bases[g + 1] * 8))
+            if len(ub_sel):
+                g_row.append(roff + (cl[loc] * SELL_C + ll[loc]) * 8
+                             + slot[s_sel] % 8)
+                g_col.append(sel_ubc[ub_sel][loc] * cw + slot[s_sel] // 8)
+                g_val.append(vals[s_sel])
 
     rows_total = int(bases[-1])
+    gpack = None
+    if g_rows:
+        # the tier's zero row (out_gather's target of rows without slots)
+        # is written with the gathered rows
+        g_rows.append(np.arange(rows_total * 8, rows_total * 8 + 8))
+        empty = np.zeros(0, np.int64)
+        gpack = gather_pack(
+            np.concatenate(g_row) if g_row else empty,
+            np.concatenate(g_col) if g_col else empty,
+            np.concatenate(g_val) if g_val else np.zeros(0, np_dtype),
+            np.concatenate(g_rows), dtype)
     if nchunks:
         stacked_pos = (
             bases[group_of_chunk] + local_of_chunk * SELL_C
@@ -419,7 +454,7 @@ def _build_sell_tier(
         ).astype(np.int32)
     else:
         og = np.full((nbr,), rows_total, np.int32)
-    return dense_l, bcol_l, ks_l, ws_l, rel_l, og, rows_total
+    return dense_l, bcol_l, ks_l, ws_l, rel_l, og, rows_total, gpack
 
 
 def _choose_diagonals(
@@ -542,6 +577,7 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     sell_ws: list = []
     sell_rel: list = []
     sell_pack: list = []
+    sell_gpack = None
     out_gather = None
     sell_rows = 0
     ovf_dense: list = []
@@ -549,6 +585,7 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     ovf_ks: list = []
     ovf_gather = None
     ovf_rows = 0
+    ovf_gpack = None
     with span("plan.stream", keep=True):
         # the single-device plan: automatic slot width, adaptive K classes,
         # window plans, overflow and stream tiers
@@ -623,7 +660,7 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
                     ovf_idx = np.nonzero(~core_mask)[0]
 
             (sell_dense, sell_bcol, sell_ks, sell_ws, sell_rel,
-             og, sell_rows) = _build_sell_tier(
+             og, sell_rows, sell_gpack) = _build_sell_tier(
                 core_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
                 forced_groups=forced_groups, adaptive=single,
                 secondary_wlo=single, win_ok=win_ok, elig_split=win_ok,
@@ -633,7 +670,7 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
                          for d, rel, ws in zip(sell_dense, sell_rel, sell_ws)]
             if ovf_idx is not None:
                 (ovf_dense, ovf_bcol, ovf_ks, _, _,
-                 og2, ovf_rows) = _build_sell_tier(
+                 og2, ovf_rows, ovf_gpack) = _build_sell_tier(
                     ovf_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
                 )
                 ovf_gather = torch.from_numpy(og2)
@@ -644,11 +681,11 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
         sell_dense=tuple(sell_dense), sell_bcol=tuple(sell_bcol),
         sell_ks=tuple(sell_ks),
         sell_ws=tuple(sell_ws), sell_rel=tuple(sell_rel),
-        sell_pack=tuple(sell_pack),
+        sell_pack=tuple(sell_pack), sell_gpack=sell_gpack,
         out_gather=out_gather, sell_rows=sell_rows,
         ovf_dense=tuple(ovf_dense), ovf_bcol=tuple(ovf_bcol),
         ovf_ks=tuple(ovf_ks), ovf_gather=ovf_gather, ovf_rows=ovf_rows,
-        stream=stream_plan,
+        ovf_gpack=ovf_gpack, stream=stream_plan,
     ).to(device)
 
 
@@ -690,7 +727,8 @@ def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:
     the result equals prepare(m, dtype) for float32-exact values. Window
     eligibility is re-checked for the target itemsize, as prepare would
     decide it; a group that keeps its window keeps its pack, values
-    cast."""
+    cast. The gathered groups' packs are cast too; where a group loses
+    its window, the tier's gathered pack is built again from the slabs."""
     if dtype == getattr(torch, p.plan_dtype):
         return p
     cw = p.sell_dense[0].shape[0] if p.sell_dense else 8
@@ -706,16 +744,26 @@ def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:
         ws_l.append(p.sell_ws[g] if ok else None)
         rel_l.append(p.sell_rel[g] if ok else None)
         pack_l.append(p.sell_pack[g].astype(dtype) if ok else None)
+    sell_dense = tuple(d.to(dtype) for d in p.sell_dense)
+    gpack = None if p.sell_gpack is None else p.sell_gpack.astype(dtype)
+    if any(a is not None and b is None
+           for a, b in zip(p.sell_pack, pack_l)):
+        gpack = pack_from_slabs(
+            sell_dense, p.sell_bcol,
+            [g for g, pk in enumerate(pack_l) if pk is None],
+            p.sell_rows).to(sell_dense[0].device)
     return dataclasses.replace(
         p,
         dense_flat_=None,
         plan_dtype=_dtype_name(dtype),
         dia=None if p.dia is None else p.dia.to(dtype),
-        sell_dense=tuple(d.to(dtype) for d in p.sell_dense),
+        sell_dense=sell_dense,
         ovf_dense=tuple(d.to(dtype) for d in p.ovf_dense),
         sell_ws=tuple(ws_l),
         sell_rel=tuple(rel_l),
         sell_pack=tuple(pack_l),
+        sell_gpack=gpack,
+        ovf_gpack=None if p.ovf_gpack is None else p.ovf_gpack.astype(dtype),
     )
 
 

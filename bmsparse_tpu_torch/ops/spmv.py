@@ -5,17 +5,19 @@ Counterpart of ``bmsparse_tpu/ops/spmv.py``. A Prepared plan
 
   DIA tier        -> dia_spmv      (csrc/dia_spmv.cu)
   SELL tier       -> sell_window   (csrc/sell_window.cu) on the packs of the
-                     groups with a window plan; a per-slot torch gather
-                     for the others
-  overflow tier   -> per-slot torch gather
+                     groups with a window plan; sell_gather
+                     (csrc/sell_gather.cu) on the pack of the others
+  overflow tier   -> sell_gather on the tier's pack
   row placement   -> torch gather through out_gather / ovf_gather
   stream tier     -> window_product + rowwise_gather (csrc/window_product.cu,
                      csrc/rowwise_gather.cu), transposes and the residue's
                      index_add_ in torch (ops/route.py::stream_apply)
 
 The groups without a window plan and the overflow mini-SELL are computed
-outside any kernel in the JAX package too, so their gather is the same
-design here, on every device.
+by XLA over their slabs in the JAX package; here they read a pack of
+their nonzeros (ops/cuda/sell_gather_kernel.py), except on the
+multi-device path (parallel/spmv.py), which gathers per slot from the
+slabs as the JAX package does.
 
 impl:
   "auto"  — the CUDA kernels for float32 and bfloat16 plans on a CUDA
@@ -40,6 +42,7 @@ import torch
 from ..config import BLOCK_HEIGHT, BLOCK_WIDTH, get_config
 from ..format.bmsparse import BmSparse, cdiv
 from ..utils.timing import span
+from .cuda.sell_gather_kernel import sell_gather, sell_gather_plain
 from .cuda.sell_kernel import sell_window, sell_window_plain
 from .cuda.spmv_kernel import dia_spmv, dia_spmv_plain
 from .route import stream_apply
@@ -115,15 +118,17 @@ def _spmv_prepared(p, v: torch.Tensor, impl: str) -> torch.Tensor:
             with span("spmv.sell"):
                 u_t = sell_apply(
                     p.sell_dense, p.sell_bcol, p.out_gather, vpad, nbc,
-                    sell_pack=p.sell_pack, kernel=kernels,
+                    sell_pack=p.sell_pack, gpack=p.sell_gpack,
+                    kernel=kernels,
                 )
             u += u_t.reshape(npad)
         if p.ovf_ks:
             # per-row outlier slots: few and scattered by construction, so
-            # they are gathered per slot
+            # every group reads the tier's gathered pack
             with span("spmv.overflow"):
                 u_t = sell_apply(
                     p.ovf_dense, p.ovf_bcol, p.ovf_gather, vpad, nbc,
+                    gpack=p.ovf_gpack, kernel=kernels,
                 )
             u += u_t.reshape(npad)
         if p.stream is not None:
@@ -171,36 +176,58 @@ def sell_apply(
     vpad: torch.Tensor,
     nbc: int,
     sell_pack: tuple = (),
+    gpack=None,
     kernel: bool = False,
     col_base: int | None = None,
     global_sentinel: int | None = None,
 ) -> torch.Tensor:
     """SELL-tier contribution: (block_rows, 8) row-major.
 
-    Per K-group, a windowed group (one with a pack, sell_pack[g]) goes
-    through `sell_window`; any other gathers each slot's v segment from a (cw,
+    The groups' rows are stacked in group order, cap * 128 rows each, and
+    a zero row last. A windowed group (one with a pack, sell_pack[g]) goes
+    through `sell_window`; the others are read from the tier's gathered
+    pack `gpack` (ops/cuda/sell_gather_kernel.py) by `sell_gather`, which
+    writes their rows and the zero row in place, with one pass over all of
+    them. Without a pack a group gathers each slot's v segment from a (cw,
     ncu + 1) table whose last column is zero (the padding slots' column),
     then sums over (window scalar, k). The rows are then placed by the
-    out_gather row map (rows with no slots read zero).
+    out_gather row map (rows with no slots read the zero row).
 
     col_base/global_sentinel: the multi-device halo mode. The plan's bcol
     are global block columns while vpad is a shard's window starting at
     block column col_base; the plan's padding column global_sentinel maps
-    to the zero column. Groups then gather per slot, as in the JAX
-    package, whose halo mode never takes the windowed kernel.
+    to the zero column. Groups then gather per slot from their slabs, as in
+    the JAX package, whose halo mode never takes the windowed kernel; a
+    gpack is refused there.
     """
     cdt = torch.promote_types(sell_dense[0].dtype, torch.float32)
     cw = sell_dense[0].shape[0]
     n = nbc * BLOCK_WIDTH
     ncu = cdiv(n, cw)                   # column units of cw scalars
+    if col_base is not None and gpack is not None:
+        raise ValueError("sell_apply: the halo mode (col_base) reads the "
+                         "slabs, not a gathered pack")
+    caps = [d.shape[1] * d.shape[4] for d in sell_dense]
+    rows_total = sum(caps)
+    u_rows = torch.empty((rows_total + 1, BLOCK_HEIGHT), dtype=cdt,
+                         device=vpad.device)
+    if gpack is not None:
+        gather = sell_gather if kernel else sell_gather_plain
+        gather(gpack, vpad, n, u_rows.view(-1))
+    else:
+        u_rows[rows_total:] = 0
     vtab = None
-    parts = []
+    base = 0
     for g, (dense_g, bcol_g) in enumerate(zip(sell_dense, sell_bcol)):
         cw_g, ch, kg, _, lanes = dense_g.shape
+        rows = slice(base, base + ch * lanes)
+        base += ch * lanes
         if (col_base is None and g < len(sell_pack)
                 and sell_pack[g] is not None):
             win = sell_window if kernel else sell_window_plain
             contrib = win(sell_pack[g], vpad, n)
+        elif gpack is not None:
+            continue
         else:
             if vtab is None:
                 vflat = torch.zeros((ncu + 1) * cw, dtype=cdt,
@@ -213,10 +240,8 @@ def sell_apply(
                                   idx - col_base).clamp(0, ncu)
             vseg = vtab[:, idx].reshape(cw_g, ch, kg, 1, lanes)
             contrib = (dense_g.to(cdt) * vseg).sum(dim=(0, 2))   # (ch, 8, 128)
-        parts.append(contrib.transpose(1, 2).reshape(-1, BLOCK_HEIGHT))
-    u_rows = torch.cat(parts + [torch.zeros((1, BLOCK_HEIGHT), dtype=cdt,
-                                            device=vpad.device)])
-    return u_rows[out_gather.long().clamp(max=u_rows.shape[0] - 1)]
+        u_rows[rows] = contrib.transpose(1, 2).reshape(-1, BLOCK_HEIGHT)
+    return u_rows[out_gather.long().clamp(max=rows_total)]
 
 
 def spmv(m, v: torch.Tensor, impl: str | None = None) -> torch.Tensor:

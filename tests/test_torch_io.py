@@ -162,8 +162,8 @@ def test_load_rejects_stale_layout(tmp_path, monkeypatch):
     m = bt.coo_to_bmsparse(rows, cols, vals, (256, 256), device="cpu")
     path = str(tmp_path / "plan.pt")
     bin_t.save_prepared(path, plan_t.prepare(m))
-    assert plan_t.PLAN_LAYOUT_VERSION == 11
-    monkeypatch.setattr(plan_t, "PLAN_LAYOUT_VERSION", 12)
+    assert plan_t.PLAN_LAYOUT_VERSION == 12
+    monkeypatch.setattr(plan_t, "PLAN_LAYOUT_VERSION", 13)
     assert bin_t.load_prepared(path, m) is None
     with pytest.raises(TypeError, match="Prepared"):
         bin_t.save_prepared(path, m)
@@ -180,6 +180,36 @@ def test_load_refuses_layout_10_dump(tmp_path, monkeypatch):
         bin_t.save_prepared(path, plan_t.prepare(m))
         assert bin_t.load_prepared(path, m) is not None
     assert bin_t.load_prepared(path, m) is None
+
+
+def test_load_refuses_layout_11_dump(tmp_path, monkeypatch):
+    """A dump stamped with layout 11 (plans without the gathered groups'
+    packs) loads as None, so such a plan is rebuilt."""
+    m = bt.coo_to_bmsparse(*tm.roadnet(65536, seed=8), device="cpu")
+    path = str(tmp_path / "plan.pt")
+    with monkeypatch.context() as mp:
+        mp.setattr(plan_t, "PLAN_LAYOUT_VERSION", 11)
+        bin_t.save_prepared(path, plan_t.prepare(m, stream="off"))
+        assert bin_t.load_prepared(path, m) is not None
+    assert bin_t.load_prepared(path, m) is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plan_roundtrip_gathered_packs(tmp_path, dtype):
+    """Both tiers' gathered packs (sell_gpack, ovf_gpack) come back field
+    for field under layout 12, and the loaded plan's SpMV is bitwise
+    equal."""
+    m = bt.coo_to_bmsparse(*tm.roadnet(65536, seed=8), device="cpu")
+    p = plan_t.prepare(m, dtype=getattr(torch, dtype), stream="off")
+    assert p.sell_gpack is not None and p.ovf_gpack is not None
+    u, u2, p2 = _spmv_pair(p, str(tmp_path / "plan.pt"), m)
+    assert torch.equal(u, u2)
+    for f in ("sell_gpack", "ovf_gpack"):
+        a, b = getattr(p2, f), getattr(p, f)
+        assert a.state().keys() == b.state().keys() and a.nnz == b.nnz
+        for k in a.TENSORS:
+            x, y = getattr(a, k), getattr(b, k)
+            assert x.dtype == y.dtype and torch.equal(x, y), (f, k)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

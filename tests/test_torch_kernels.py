@@ -1,4 +1,6 @@
-"""The port's two kernels against the JAX package's Pallas kernels.
+"""The port's SpMV kernels against the JAX package's Pallas kernels, and
+the gathered groups' kernel (sell_gather, which replaces no Pallas
+kernel) against its plain version.
 
 On the CPU each wrapper (dia_spmv, sell_window) runs its plain torch
 version, which is held against the Pallas kernel in interpret mode on the
@@ -25,6 +27,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from bmsparse_tpu_torch.ops.cuda import sell_kernel as sk
+from bmsparse_tpu_torch.ops.cuda.sell_gather_kernel import (
+    gather_pack, sell_gather, sell_gather_plain,
+)
 from bmsparse_tpu_torch.ops.cuda.sell_kernel import (
     pack_group, sell_window, sell_window_plain,
 )
@@ -96,6 +101,35 @@ def _t(x, dtype=None):
 
 def _pack(dense, rel, ws, dtype=torch.float32):
     return pack_group(_t(dense, dtype), _t(rel), _t(ws))
+
+
+def _kronecker(scale, edgefactor=16, seed=0, hub=0):
+    """Graph500's Kronecker graph (initiator 0.57, 0.19, 0.19, its vertex
+    permutation), undirected, self-loops and duplicates dropped, as P = A
+    D^-1 in COO (rows, cols, vals, shape); `hub` more edges from vertex 0
+    to distinct others give it a row at least that long."""
+    rng = np.random.default_rng(seed)
+    nv, m = 1 << scale, edgefactor << scale
+    ab, c_norm, a_norm = 0.76, 0.19 / 0.24, 0.57 / 0.76
+    ii = np.zeros(m, np.int64)
+    jj = np.zeros(m, np.int64)
+    for ib in range(scale):
+        ii_bit = rng.random(m) > ab
+        jj_bit = rng.random(m) > np.where(ii_bit, c_norm, a_norm)
+        ii += ii_bit.astype(np.int64) << ib
+        jj += jj_bit.astype(np.int64) << ib
+    perm = rng.permutation(nv)
+    ii, jj = perm[ii], perm[jj]
+    extra = rng.choice(np.arange(1, nv), min(hub, nv - 1), replace=False)
+    ii = np.concatenate([ii, np.zeros(len(extra), np.int64)])
+    jj = np.concatenate([jj, extra])
+    src, dst = np.concatenate([ii, jj]), np.concatenate([jj, ii])
+    keep = src != dst
+    key = np.unique(src[keep] * nv + dst[keep])
+    rows, cols = key // nv, key % nv
+    deg = np.bincount(rows, minlength=nv)
+    vals = (1.0 / deg[cols]).astype(np.float32)
+    return rows.astype(np.int32), cols.astype(np.int32), vals, (nv, nv)
 
 
 def _planner_slab(cw, kg, cap=3, seed=0):
@@ -260,6 +294,68 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
             1, 1, 128, dtype=torch.int32), torch.zeros(1, dtype=torch.int32))
 
 
+def _gather_inputs(dtype=torch.float32, seed=0):
+    """A small GatherPack: rows of 0 to 3,000 entries (3 segments and
+    more), empty rows, rows left out of the pack, columns past n."""
+    rng = np.random.default_rng(seed)
+    nrows, n = 40, 5000
+    counts = rng.integers(0, 300, nrows)
+    counts[[3, 17]] = [3000, 0]
+    row = np.repeat(np.arange(nrows), counts)
+    col = np.concatenate([rng.choice(n + 40, c, replace=False)
+                          for c in counts])
+    vals = rng.standard_normal(len(row)).astype(np.float32)
+    rows = rng.permutation(2 * nrows)[:nrows]
+    pack = gather_pack(row, col, vals, rows, dtype)
+    v = torch.from_numpy(rng.standard_normal(n + 40).astype(np.float32))
+    return pack, v, n, 2 * nrows
+
+
+def test_sell_gather_plain_sums_rows():
+    """Each pack row is the sum of its entries, written at its stacked
+    row; rows outside the pack keep what out held; a segment holds at
+    most SEG_LEN entries of one row."""
+    pack, v, n, nout = _gather_inputs()
+    out = torch.full((nout,), float("nan"))
+    got = sell_gather(pack, v, n, out)
+    assert got is out
+    seg_rows = np.repeat(np.arange(pack.rows.shape[0]),
+                         np.diff(pack.row_seg.numpy()))
+    row = np.repeat(seg_rows, np.diff(pack.seg_off.numpy()))
+    assert np.diff(pack.seg_off.numpy()).max() <= 1024
+    assert np.diff(pack.row_seg.numpy())[3] == 3
+    col = pack.cols[:pack.nnz].numpy().astype(np.int64)
+    key = row * (n + 40) + col
+    assert (np.diff(key) > 0).all()
+    x = np.where(col < n, v.numpy()[np.minimum(col, n - 1)], 0)
+    want = np.zeros(pack.rows.shape[0])
+    np.add.at(want, row, pack.vals[:pack.nnz].double().numpy() * x)
+    r = pack.rows.long()
+    np.testing.assert_allclose(got[r].numpy(), want, **TOL)
+    rest = torch.ones(nout, dtype=torch.bool)
+    rest[r] = False
+    assert out[rest].isnan().all()
+    assert pack.vals.numel() % 4 == 0 and pack.vals.numel() - pack.nnz < 4
+
+
+def test_sell_gather_rejects_what_the_kernel_does_not_take():
+    pack, v, n, nout = _gather_inputs()
+    out = torch.zeros(nout)
+    for bad in (dict(cols=pack.cols.long()),
+                dict(rows=pack.rows[:-1]),
+                dict(seg_off=pack.seg_off.int()),
+                dict(vals=pack.vals[:-1], cols=pack.cols[:-1])):
+        with pytest.raises(ValueError):
+            sell_gather(dataclasses.replace(pack, **bad), v, n, out)
+    with pytest.raises(ValueError):
+        sell_gather(pack, v, v.shape[0] + 1, out)
+    with pytest.raises(ValueError, match="contiguous"):
+        sell_gather(pack, torch.stack([v, v], 1)[:, 0], n, out)
+    before = sell_gather.launches
+    sell_gather(pack, v, n, out)
+    assert sell_gather.launches == before
+
+
 @pytest.mark.parametrize("shift", [128, 256, -384])
 def test_dia_shift_matches_pallas(ref, shift):
     """The shift against the JAX DIA path at col_shift (Pallas, interpret
@@ -368,3 +464,79 @@ def test_kernels_reject_mixed_devices_on_card(cuda):
     dia, v = _dia_inputs((0,))
     with pytest.raises(ValueError, match="dia on"):
         dia_spmv(_t(dia).to(cuda), _t(v), (0,))
+
+
+def _gather_ref(pack, v, n, nout):
+    """The pack's rows (nan where out has no pack row) in float64, and
+    their scale |vals| |v| row by row: float32 sums in any order lie
+    within a few 1e-7 of the scale."""
+    p64 = pack.astype(torch.float64)
+    nan = torch.full((nout,), float("nan"), dtype=torch.float64,
+                     device=v.device)
+    ref = sell_gather_plain(p64, v.double(), n, nan.clone())
+    scale = sell_gather_plain(dataclasses.replace(p64, vals=p64.vals.abs()),
+                              v.double().abs(), n, nan.clone())
+    return ref, scale
+
+
+def _assert_gap(got, ref, scale, gap=1e-5):
+    """|got - ref| within gap times the row's scale, nan where ref is."""
+    assert torch.equal(got.isnan(), ref.isnan())
+    w = ~ref.isnan()
+    err = (got[w].double() - ref[w]).abs()
+    assert bool((err <= gap * scale[w]).all()), float(
+        (err / scale[w].clamp(min=1e-300)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sell_gather_kernel_on_card(cuda, dtype):
+    pack, v, n, nout = _gather_inputs(getattr(torch, dtype))
+    pack, v = pack.to(cuda), v.to(cuda)
+    out = torch.full((nout,), float("nan"), device=cuda)
+    before = sell_gather.launches
+    sell_gather(pack, v, n, out)
+    torch.cuda.synchronize()
+    assert sell_gather.launches == before + 2
+    _assert_gap(out, *_gather_ref(pack, v, n, nout))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sell_gather_kronecker_on_card(cuda, dtype):
+    """A Kronecker scale-16 plan (the PageRank cell's structure: hub rows
+    on the SELL tier, the rest on the stream tier in float32): the kernel
+    and its plain version against the pack's float64 sums, two calls bit
+    for bit, and two launches per tier with a gathered pack per SpMV,
+    whose result meets the float64 oracle."""
+    import bmsparse_tpu_torch as bt
+
+    r, c, vals, shape = _kronecker(16, seed=5)
+    f32 = dtype == "float32"
+    m = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
+    p = bt.prepare(m, dtype=getattr(torch, dtype),
+                   stream="force" if f32 else "off").to(cuda)
+    assert p.sell_gpack is not None and (p.stream is not None) == f32
+    n = p.block_cols * 8
+    nout = (p.sell_rows + 1) * 8
+    g = torch.Generator().manual_seed(3)
+    v = torch.randn(n, generator=g).to(cuda)
+    ref = _gather_ref(p.sell_gpack, v, n, nout)
+    outs = []
+    for fn in (sell_gather, sell_gather, sell_gather_plain):
+        out = torch.full((nout,), float("nan"), device=cuda)
+        outs.append(fn(p.sell_gpack, v, n, out))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    _assert_gap(outs[0], *ref)
+    _assert_gap(outs[2], *ref)
+    x = torch.randn(shape[1], generator=g)
+    before = sell_gather.launches
+    u = bt.spmv(p, x.to(cuda))
+    torch.cuda.synchronize()
+    tiers = (p.sell_gpack is not None) + (p.ovf_gpack is not None)
+    assert sell_gather.launches == before + 2 * tiers
+    a = (m.astype(torch.bfloat16) if not f32 else m).to_scipy().tocsr()
+    want = a @ x.double().numpy()
+    scale = abs(a) @ x.double().abs().numpy()
+    assert (np.abs(u.cpu().double().numpy() - want) <= 1e-5 * scale).all()

@@ -24,14 +24,16 @@ from bmsparse_tpu.ops.plan import prepare as prepare_j
 
 import bmsparse_tpu_torch as bt
 from bmsparse_tpu_torch.interop import prepared_from_numpy
+from bmsparse_tpu_torch.ops.cuda.sell_gather_kernel import sell_gather_plain
 from bmsparse_tpu_torch.ops.plan import prepare as prepare_t
+from bmsparse_tpu_torch.ops.spmv import sell_apply
 from bmsparse_tpu_torch.oracle.scipy_oracle import oracle_spmv
 from bmsparse_tpu_torch.utils import testmats as tm
 from bmsparse_tpu_torch.utils.testmats import make_stencil
 
 from conftest import data_path, random_coo
 from test_pallas_sell import _clustered_coo, _road_like_coo
-from test_torch_kernels import _expand, _same_bits
+from test_torch_kernels import _expand, _kronecker, _same_bits
 from test_torch_plan import jax_plan_arrays
 
 REPO = Path(__file__).resolve().parents[1]
@@ -152,6 +154,141 @@ def test_bf16_plan_matches_jax(name):
     # the oracle sees the values the plan holds: rounded to bfloat16
     ref = mt.astype(torch.bfloat16).to_scipy() @ v.astype(np.float64)
     np.testing.assert_allclose(u, ref, **ORACLE)
+
+
+def _scattered_scalar_rows(n=4096, seed=6):
+    """Scalar rows 1 and 6 of every block row, 40 scattered entries each:
+    block rows with empty scalar rows, and no column window."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n)[np.isin(np.arange(n) % 8, (1, 6))], 40)
+    key = np.unique(rows.astype(np.int64) * n + rng.integers(0, n, len(rows)))
+    r, c = np.divmod(key, n)
+    vals = rng.standard_normal(len(r)).astype(np.float32)
+    return r.astype(np.int32), c.astype(np.int32), vals, (n, n)
+
+
+# name -> (triplets, prepare's arguments): plans whose SELL tiers have
+# groups without a window plan, read from the tier's GatherPack
+GATHER_CASES = {
+    # hub rows on the SELL tier (cw = 8), the rest on the stream tier, as
+    # in the PageRank cell; vertex 0's row has 2,500 entries: 3 segments
+    "power_law": lambda: (_kronecker(12, seed=2, hub=2500),
+                          dict(stream="force")),
+    "empty_scalar_rows": lambda: (_scattered_scalar_rows(),
+                                  dict(stream="off")),
+    "road_overflow": lambda: (
+        (*_road_like_coo(12288, seed=11), (12288, 12288)),
+        dict(stream="off")),
+    # n = 32,768: hub rows span more than a column window
+    "bf16": lambda: (_kronecker(15, edgefactor=4, seed=2, hub=2500),
+                     dict(dtype=torch.bfloat16)),
+}
+
+
+def _gather_plan(name):
+    (r, c, vals, shape), kw = GATHER_CASES[name]()
+    m = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
+    p = prepare_t(m, **kw)
+    if name == "power_law":
+        assert p.stream is not None
+        assert np.diff(p.sell_gpack.row_seg.numpy()).max() >= 3
+    if name == "road_overflow":
+        assert p.ovf_gpack is not None
+        assert any(pk is not None for pk in p.sell_pack)
+    if name == "bf16":
+        assert p.sell_gpack.vals.dtype == torch.bfloat16
+    return m, p
+
+
+def _tiers(p):
+    """(dense, bcol, out_gather, windowed packs, gathered pack, rows) of
+    each SELL tier with a gathered pack."""
+    return [t for t in (
+        (p.sell_dense, p.sell_bcol, p.out_gather, p.sell_pack, p.sell_gpack,
+         p.sell_rows),
+        (p.ovf_dense, p.ovf_bcol, p.ovf_gather, (), p.ovf_gpack, p.ovf_rows),
+    ) if t[4] is not None]
+
+
+def _stacked(dense, groups):
+    """The stacked scalar rows of `groups` of a tier."""
+    bases = np.cumsum([0] + [d.shape[1] * 128 for d in dense])
+    return np.concatenate([np.arange(bases[g] * 8, bases[g + 1] * 8)
+                           for g in groups] + [np.zeros(0, np.int64)])
+
+
+@pytest.mark.parametrize("name", sorted(GATHER_CASES))
+def test_gathered_pack_matches_slab_gather(name):
+    """sell_apply on the tiers' gathered packs (sell_gather_plain) equals
+    the per-slot gather over the slabs (the halo path at col_base 0), and
+    sell_gather_plain writes the gathered groups' rows and the zero row
+    and nothing else; spmv meets the oracle."""
+    m, p = _gather_plan(name)
+    n = p.block_cols * 8
+    v = _v(m.num_cols)
+    vpad = torch.zeros(n)
+    vpad[: m.num_cols] = torch.from_numpy(v)
+    tiers = _tiers(p)
+    assert tiers
+    for dense, bcol, og, packs, gk, rows_total in tiers:
+        ncu = -(-m.num_cols // dense[0].shape[0])
+        args = (dense, bcol, og, vpad, p.block_cols)
+        got = sell_apply(*args, sell_pack=packs, gpack=gk)
+        want = sell_apply(*args, col_base=0, global_sentinel=ncu)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **PARITY)
+        with pytest.raises(ValueError, match="halo"):
+            sell_apply(*args, gpack=gk, col_base=0, global_sentinel=ncu)
+        out = torch.full(((rows_total + 1) * 8,), float("nan"))
+        sell_gather_plain(gk, vpad, n, out)
+        gathered = [g for g in range(len(dense))
+                    if g >= len(packs) or packs[g] is None]
+        written = np.zeros(out.numel(), bool)
+        written[_stacked(dense, gathered)] = True
+        written[rows_total * 8:] = True
+        assert out[torch.from_numpy(~written)].isnan().all()
+        assert not out[torch.from_numpy(written)].isnan().any()
+        assert not out[rows_total * 8:].any()
+    ref = m.astype(torch.bfloat16).to_scipy() if name == "bf16" else \
+        m.to_scipy()
+    u = bt.spmv(p, torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(u, ref @ v.astype(np.float64), **ORACLE)
+
+
+@pytest.mark.parametrize("name", sorted(GATHER_CASES))
+def test_gathered_pack_expands_to_slab(name):
+    """Each tier's gathered pack holds the nonzeros of the slabs of its
+    groups without a window, bit for bit, sorted by (row, column), and
+    its rows are exactly those groups' stacked rows and the zero row."""
+    m, p = _gather_plan(name)
+    for dense, bcol, og, packs, gk, rows_total in _tiers(p):
+        gathered = [g for g in range(len(dense))
+                    if g >= len(packs) or packs[g] is None]
+        want_rows = np.r_[_stacked(dense, gathered),
+                          np.arange(rows_total * 8, rows_total * 8 + 8)]
+        np.testing.assert_array_equal(gk.rows.numpy(), want_rows)
+        seg_rows = np.repeat(np.arange(gk.rows.shape[0]),
+                             np.diff(gk.row_seg.numpy()))
+        row = np.repeat(seg_rows, np.diff(gk.seg_off.numpy()))
+        col = gk.cols[:gk.nnz].numpy().astype(np.int64)
+        assert (np.diff(row * m.num_cols + col) > 0).all()
+        st = gk.rows.numpy().astype(np.int64)[row]
+        brow, i = np.divmod(st, 8)
+        bases = np.cumsum([0] + [d.shape[1] * 128 for d in dense])
+        grp = np.searchsorted(bases, brow, "right") - 1
+        cw = dense[0].shape[0]
+        vals = gk.vals[:gk.nnz]
+        for g in gathered:
+            sel = grp == g
+            c, lane = np.divmod(brow[sel] - bases[g], 128)
+            u, w = np.divmod(col[sel], cw)
+            cap, kg = dense[g].shape[1:3]
+            b = bcol[g].numpy().reshape(cap, kg, 128)
+            k = np.argmax(b[c, :, lane] == u[:, None], axis=1)
+            assert (b[c, k, lane] == u).all()
+            slab = torch.zeros_like(dense[g])
+            idx = tuple(torch.from_numpy(x) for x in (w, c, k, i[sel], lane))
+            slab[idx] = vals[torch.from_numpy(np.nonzero(sel)[0])]
+            _same_bits(slab, dense[g])
 
 
 @pytest.mark.parametrize("shape,density", [((24, 24), 0.15), ((64, 64), 0.1),
