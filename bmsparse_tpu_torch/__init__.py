@@ -12,6 +12,8 @@ Public API:
     spmv, csr_spmv                — u = A @ v
     spgemm                        — C = A @ B (ops.spgemm)
     prepare_product               — cached C = A @ B per structure
+    prepare_galerkin              — cached A_c = P^T (A P) per structure
+                                    (an AMG level's re-set-up)
     mean_relative_error           — reference `compare()` semantics
 
 Kernels (csrc/, built with nvcc at first use on a CUDA device):
@@ -41,6 +43,7 @@ from .io.binary import load_bmsparse, save_bmsparse
 from .io.matrix_market import mmread_bmsparse, read_matrix_market
 from .oracle.compare import assert_allclose_sparse, mean_relative_error
 from .ops.plan import Prepared, prepare
+from .ops.galerkin import prepare_galerkin
 from .ops.product import prepare_product
 from .ops.spgemm import spgemm
 from .ops.spmv import csr_spmv, spmv

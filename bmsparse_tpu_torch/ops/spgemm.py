@@ -1145,6 +1145,7 @@ def spgemm(a, b, impl: str | None = None,
 
     impl: "auto" | "cuda" | "plain" | "xla" | None (config default); see
     the module docstring. verbose prints the reference's phase labels.
+    Span: the symbolic phase and the plan (`spgemm.plan`).
     """
     from .plan import Prepared, as_matrix
 
@@ -1159,7 +1160,8 @@ def spgemm(a, b, impl: str | None = None,
     verbose = cfg.verbose if verbose is None else verbose
     timer = PhaseTimer(enabled=verbose, device=a.device)
 
-    p = _plan_product(a, b, a_prep, b_prep, timer, verbose)
+    with span("spgemm.plan"):
+        p = _plan_product(a, b, a_prep, b_prep, timer, verbose)
 
     with timer.phase("T_9b"):
         c_values = (_numeric_xla_from_plan(p) if impl == "xla"

@@ -240,6 +240,7 @@ def _run(args):
     ("cli.spgemm", ["data/real", "A_matrix", "B_matrix"]),
     ("examples.cg", ["64", "2"]),
     ("examples.matrix_powers", ["64", "2"]),
+    ("examples.amg_setup", ["12", "3", "1"]),
 ])
 def test_cuda_without_card_is_an_error(module, argv):
     if torch.cuda.is_available():
