@@ -134,6 +134,8 @@ def load() -> ctypes.CDLL:
     lib.bmsp_rowwise_gather.restype = i32
     lib.bmsp_segment_compress.argtypes = [p, p, i64, i64, p, p]
     lib.bmsp_segment_compress.restype = i32
+    lib.bmsp_bitmap_compress.argtypes = [p, p, p, p, i64, i64, i64, p, p]
+    lib.bmsp_bitmap_compress.restype = i32
     lib.bmsp_error_string.argtypes = [i32]
     lib.bmsp_error_string.restype = ctypes.c_char_p
     _lib = lib

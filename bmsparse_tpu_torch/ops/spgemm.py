@@ -23,16 +23,24 @@ plan array equals the JAX package's at every position, padding included:
                              numeric_window_pallas),
       csrc/spgemm_sell.cu    (numeric_sell) for every other group (its
                              numeric_sell_pallas, gather fused in).
-  compress: bit-order packing (_pack_rows), then one of three ways to
-      place the packed rows in C's value array, chosen at plan time by
-      config spgemm_compress (the JAX package's names):
-        "auto"/"scatter" one row scatter-add (_compress_rows), plain torch;
-        "fold"           a gather of each output row's contributors
-                         through a plan table (_compress_fold), plain
-                         torch, where the plan's run lengths allow it;
-        "mxu"            the segment compress per sigma class
-                         (_compress_mxu) on csrc/segment_compress.cu, the
-                         counterpart of the JAX package's MXU kernel.
+  compress: the dense C tiles into C's bit-order value array, one of
+      three ways chosen at plan time by config spgemm_compress (the JAX
+      package's names):
+        "auto"/"scatter" csrc/bitmap_compress.cu (bitmap_compress) on
+                         the kernels, its plain twin elsewhere: each set
+                         lane written once at its block's offset + the
+                         popcount of the bits below it, no sort and no
+                         sum (the JAX package's _compress_rows sorts,
+                         rotates and scatter-adds rows to the same
+                         values);
+        "fold"           _pack_rows, then a gather of each output row's
+                         contributors through a plan table
+                         (_compress_fold), plain torch, where the plan's
+                         run lengths allow it;
+        "mxu"            _pack_rows, then the segment compress per sigma
+                         class (_compress_mxu) on
+                         csrc/segment_compress.cu, the counterpart of the
+                         JAX package's MXU kernel.
 
 The JAX package's XLA slab-window gather (`_numeric_group_windowed`) is a
 TPU gather-rate workaround; its groups' slot tables hold absolute block
@@ -72,6 +80,7 @@ from ..config import bucket_size, get_config, round_up
 from ..format import bitmap as bm
 from ..format.bmsparse import BmSparse
 from ..utils.timing import PhaseTimer, span
+from .cuda import bitmap_compress_kernel as _bk
 from .cuda import compress_kernel as _ck
 from .cuda import spgemm_kernel as _sk
 from .cuda import spgemm_window_kernel as _wk
@@ -512,13 +521,9 @@ def _numeric_and_compress(a_flat, b_flat, a_idx, b_idx, c_seg, c_hi, c_lo,
     slot offsets + prefix popcount of each set bit (the inverse of
     decompress_blocks); positions at or past num_c_nnz drop out."""
     c_dense = _numeric_xla(a_flat, b_flat, a_idx, b_idx, c_seg, num_c_blocks)
-    bits = bm.expand_bits(c_hi[:num_c_blocks], c_lo[:num_c_blocks])
-    pos = torch.where(
-        bits > 0,
-        c_offsets[:num_c_blocks, None].long() + bm.prefix_popcount(bits),
-        num_c_nnz).clamp(max=num_c_nnz)
-    out = c_dense.new_zeros(num_c_nnz + 1)
-    return out.scatter_(0, pos.reshape(-1), c_dense.reshape(-1))[:num_c_nnz]
+    return _bk.bitmap_compress_plain(
+        c_dense, c_hi[:num_c_blocks], c_lo[:num_c_blocks],
+        c_offsets[:num_c_blocks], num_c_nnz, num_c_nnz)
 
 
 def _numeric_products(a_flat, b_flat, launches: tuple, rows: int,
@@ -578,22 +583,6 @@ def _fold_out(out128, t_rows: int, num_c_nnz: int):
         carry = out128.new_zeros((t_rows, 64))
     out = out128[:t_rows, :64] + carry
     return out.reshape(-1)[:num_c_nnz]
-
-
-def _compress_rows(c_rows, hi, lo, off, num_c_nnz: int):
-    """Pack dense C tiles into bit-order values (the JAX package's
-    _compress_rows / _compress_core): hi/lo/off are row-aligned with
-    c_rows; rows with zero bitmaps contribute nothing. Each block's values
-    fill [off, off + cnt), at most two 64-wide output rows, so one
-    128-wide row scatter-add places them. Every output position gets one
-    non-zero term, so the sum is exact in any order."""
-    w, b_row = _pack_rows(c_rows, hi, lo, off)
-    t_rows = -(-num_c_nnz // 64) if num_c_nnz else 1
-    # JAX drops rows past t_rows; index_add_ would raise on them, so they
-    # land on a dump row
-    idx = torch.where((b_row >= 0) & (b_row <= t_rows), b_row, t_rows + 1)
-    out128 = w.new_zeros((t_rows + 2, 128)).index_add_(0, idx, w)
-    return _fold_out(out128, t_rows, num_c_nnz)
 
 
 def _compress_fold(c_rows, hi, lo, off, g_tbl, num_c_nnz: int):
@@ -682,10 +671,13 @@ def _compress_fold_plan(nat_off, nat_of_sig, chunk_base, nbc: int,
 
 def _numeric_stage(a_flat, b_flat, launches, rows: int, sig_hi, sig_lo,
                    sig_off, groups: tuple, kernels: bool, nnz_pad: int,
-                   compress: str = "scatter", g_tbl=None):
+                   num_c_nnz: int, compress: str = "scatter", g_tbl=None):
     """The whole numeric phase (products, K-sums, compress) on plan data;
-    `compress` is the plan's compress mode. Spans: the products
-    (`spgemm.products`) and the compress (`spgemm.compress`)."""
+    `compress` is the plan's compress mode, whose "scatter" is the
+    bitmap-rank compress (the sigma rows cover C's num_c_nnz positions
+    once each): the kernel where `kernels`, its plain twin elsewhere. Spans:
+    the products (`spgemm.products`) and the compress
+    (`spgemm.compress`)."""
     with span("spgemm.products"):
         c_rows = _numeric_products(a_flat, b_flat, launches, rows, kernels)
     with span("spgemm.compress"):
@@ -695,7 +687,8 @@ def _numeric_stage(a_flat, b_flat, launches, rows: int, sig_hi, sig_lo,
         if compress == "mxu":
             return _compress_mxu(c_rows, sig_hi, sig_lo, sig_off, groups,
                                  nnz_pad, kernels)
-        return _compress_rows(c_rows, sig_hi, sig_lo, sig_off, nnz_pad)
+        run = _bk.bitmap_compress if kernels else _bk.bitmap_compress_plain
+        return run(c_rows, sig_hi, sig_lo, sig_off, nnz_pad, num_c_nnz)
 
 
 # ---------------------------------------------------------------------------
@@ -1179,7 +1172,8 @@ def _numeric_from_plan(p: _ProductPlan, kernels: bool, a_flat=None,
     if p.groups and p.num_c_blocks > 0:
         return _numeric_stage(
             a_flat, b_flat, p.launches, p.rows, *p.sig_st, tuple(p.groups),
-            kernels, p.nnz_pad, compress=p.compress_mode, g_tbl=p.g_tbl)
+            kernels, p.nnz_pad, p.num_c_nnz, compress=p.compress_mode,
+            g_tbl=p.g_tbl)
     return torch.zeros(
         p.nnz_pad, dtype=torch.promote_types(a_flat.dtype, torch.float32),
         device=a_flat.device)

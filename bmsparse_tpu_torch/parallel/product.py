@@ -18,7 +18,7 @@ rank and runs the static-bound numeric. This module plans instead:
     unified statics (the union of K-groups, each at the largest chunk
     count). Each rank then launches csrc/spgemm_sell.cu (numeric_sell)
     once over all its K-groups, on b_needed = [exchanged tiles ; own slab
-    ; zero sentinel], and compresses with the row scatter-add.
+    ; zero sentinel], and compresses by bitmap rank (plain torch).
 
 Values may change between calls while the structure stays (replace
 a_flat / b_flat with new tiles), as for ops.product.PreparedProduct.
@@ -35,6 +35,7 @@ import torch
 
 from ..config import bucket_size, get_config
 from ..ops import spgemm as sg
+from ..ops.cuda import bitmap_compress_kernel as _bk
 from ..ops.cuda import spgemm_kernel as _sk
 from ..utils.timing import PhaseTimer
 from .mesh import Mesh
@@ -353,7 +354,7 @@ def local_multiply(spp: ShardedProduct, s: int, b_needed: torch.Tensor,
                    kernels: bool) -> torch.Tensor:
     """Shard s's C values (nnz_pad,) from its exchanged B tiles: one
     numeric_sell launch over all unified K-groups (its plain twin when not
-    `kernels`), then the row scatter-add compress."""
+    `kernels`), then the bitmap-rank compress's plain twin."""
     af = spp.a_flat[s]
     c_rows = torch.zeros((spp.rows, 64), dtype=torch.float32,
                          device=af.device)
@@ -367,8 +368,8 @@ def local_multiply(spp: ShardedProduct, s: int, b_needed: torch.Tensor,
         run = (_sk.numeric_sell_groups if kernels
                else _sk.numeric_sell_groups_plain)
         run(af, b_needed, launch, c_rows)
-    return sg._compress_rows(c_rows, spp.sig_hi[s], spp.sig_lo[s],
-                             spp.sig_off[s], spp.nnz_pad)
+    return _bk.bitmap_compress_plain(c_rows, spp.sig_hi[s], spp.sig_lo[s],
+                                     spp.sig_off[s], spp.nnz_pad, spp.nnz_pad)
 
 
 def sharded_multiply(spp: ShardedProduct, mesh: Mesh) -> ShardedBmSparse:

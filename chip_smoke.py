@@ -13,6 +13,8 @@ the public API —
          and fem1M;
   SpGEMM compress alternatives: the segment compress (spgemm_compress=
          "mxu") on band2M and fem1M, the gather-fold ("fold") on band256k;
+         the default compress's kernel (bitmap_compress) against its
+         plain version, bit for bit, at band2M's and fem1M's;
   the user surfaces (phase 4): the device converter against the host
          converter on stencil2M and road1M, container and plan
          persistence (road1M, web256k), write_matrix_market and both
@@ -895,12 +897,15 @@ def same_c(c, cp):
 def phase2_spgemm(torch):
     """SpGEMM A*A through the public API, with launch counts."""
     import bmsparse_tpu_torch as bt
+    from bmsparse_tpu_torch.ops.cuda.bitmap_compress_kernel import (
+        bitmap_compress,
+    )
     from bmsparse_tpu_torch.ops.cuda.spgemm_kernel import numeric_sell
     from bmsparse_tpu_torch.ops.cuda.spgemm_window_kernel import (
         numeric_window,
     )
 
-    launches = {"numeric_sell": 0, "numeric_window": 0}
+    launches = {"numeric_sell": 0, "numeric_window": 0, "bitmap_compress": 0}
     runs = {}
     for name, load in spgemm_matrices():
         t0 = time.perf_counter()
@@ -908,12 +913,14 @@ def phase2_spgemm(torch):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         numeric_sell.launches = numeric_window.launches = 0
+        bitmap_compress.launches = 0
         c = bt.spgemm(a, b)
         pp = bt.prepare_product(a, b)
         c2 = pp()
         torch.cuda.synchronize()
         counts = {"numeric_sell": numeric_sell.launches,
-                  "numeric_window": numeric_window.launches}
+                  "numeric_window": numeric_window.launches,
+                  "bitmap_compress": bitmap_compress.launches}
         t2 = time.perf_counter()
         syncs = (count_syncs(lambda: bt.spgemm(a, b), torch),
                  count_syncs(pp, torch))
@@ -961,12 +968,18 @@ def phase2_spgemm(torch):
               and counts["numeric_sell"] == 2 * (len(p.groups) > n_win),
               f"{name}: expected one launch per kernel kind and product, "
               f"got {counts}")
+        check(counts["bitmap_compress"] == 2 * (c.nb > 0),
+              f"{name}: expected one bitmap_compress per product, got "
+              f"{counts}")
         numeric_sell.launches = numeric_window.launches = 0
+        bitmap_compress.launches = 0
         pp()
         torch.cuda.synchronize()
-        one = (numeric_window.launches, numeric_sell.launches)
+        one = (numeric_window.launches, numeric_sell.launches,
+               bitmap_compress.launches)
         print(f"phase2 spgemm {name}: one pp() launches numeric_window "
-              f"{one[0]} and numeric_sell {one[1]} times")
+              f"{one[0]}, numeric_sell {one[1]} and bitmap_compress {one[2]} "
+              f"times")
         check(max(one) <= 1, f"{name}: pp() launched a kernel twice")
         for k in launches:
             launches[k] += counts[k]
@@ -1005,15 +1018,30 @@ def mxu_inputs(pp):
     return list(sg._mxu_class_inputs(c_rows, *p.sig_st, p.groups)), t_rows
 
 
+def scatter_inputs(pp):
+    """The default compress's operands of a cached product: c_rows as its
+    pp() makes them, and the plan (sigma rows' words and offsets in
+    p.sig_st, p.nnz_pad, p.num_c_nnz)."""
+    from bmsparse_tpu_torch.ops import spgemm as sg
+
+    p = pp.plan
+    return sg._numeric_products(p.a_flat, p.b_flat, p.launches, p.rows,
+                                True), p
+
+
 def phase2_compress(torch, runs):
     """The SpGEMM compress alternatives through the public API, with
     launch counts: the segment compress ("mxu") on band2M and fem1M, the
     gather-fold ("fold") on band256k; C against the scatter path's and
     scipy; then segment_compress_class against its plain version at
-    band2M's pp() shapes."""
+    band2M's pp() shapes, and bitmap_compress against its plain version,
+    bit for bit, at band2M's and fem1M's."""
     import bmsparse_tpu_torch as bt
     from bmsparse_tpu_torch.config import bucket_size
     from bmsparse_tpu_torch.ops import spgemm as sg
+    from bmsparse_tpu_torch.ops.cuda.bitmap_compress_kernel import (
+        bitmap_compress, bitmap_compress_plain,
+    )
     from bmsparse_tpu_torch.ops.cuda.compress_kernel import (
         segment_compress_class, segment_compress_class_plain,
     )
@@ -1032,11 +1060,13 @@ def phase2_compress(torch, runs):
         bt.set_config(spgemm_compress=mode)
         try:
             segment_compress_class.launches = 0
+            bitmap_compress.launches = 0
             c = bt.spgemm(a, b)
             pp = bt.prepare_product(a, b)
             c2 = pp()
             torch.cuda.synchronize()
             n_seg = segment_compress_class.launches
+            n_bc = bitmap_compress.launches
         finally:
             bt.set_config(spgemm_compress="auto")
         launches["segment_compress_class"] += n_seg
@@ -1057,6 +1087,8 @@ def phase2_compress(torch, runs):
         want = 2 * len(p.groups) if mode == "mxu" else 0
         check(n_seg == want, f"{name}: {n_seg} segment compress launches, "
               f"expected {want}")
+        check(n_bc == 2 * (pp.compress_mode == "scatter"),
+              f"{name}: {n_bc} bitmap_compress launches under {mode}")
         rels = (compress_rel(c, c_sc), compress_rel(c2, c_sc))
         print(f"phase2 compress {name}: structure equal to the scatter "
               f"path's; max|C-C_scatter|/max|C_scatter| one-shot "
@@ -1086,7 +1118,21 @@ def phase2_compress(torch, runs):
         print(f"phase1 segment_compress_class band2M class {g}: "
               f"w={tuple(w_g.shape)} t_pad={t_rows}: "
               f"max_abs_err={max_abs(got, want)!r}")
-    return launches, {"segment_compress_class": err}, out
+    errs = {"segment_compress_class": err, "bitmap_compress": 0.0}
+    for name in ("band2M", "fem1M"):
+        c_rows, p = scatter_inputs(out[name][2])
+        args = (c_rows, *p.sig_st, p.nnz_pad, p.num_c_nnz)
+        want = bitmap_compress_plain(*args)
+        got = bitmap_compress(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"{name}: bitmap_compress differs from its plain version")
+        errs["bitmap_compress"] = max(errs["bitmap_compress"],
+                                      max_abs(got, want))
+        print(f"phase1 bitmap_compress {name}: c_rows={tuple(c_rows.shape)} "
+              f"nnz(C)={p.num_c_nnz} nnz_pad={p.nnz_pad}: equal to its "
+              f"plain version bit for bit")
+    return launches, errs, out
 
 
 def phase3_stream_times(torch, stream_runs, auto_runs, card):
@@ -1236,10 +1282,50 @@ def phase3_stream_times(torch, stream_runs, auto_runs, card):
     return rows
 
 
+def compress_bound(hi, lo, nnz_pad) -> tuple:
+    """bitmap_compress's least time: the 32-byte sectors of c_rows that
+    hold a set address (8 addresses each), 24 bytes of words and offset
+    per row, and the nnz_pad values written."""
+    from bmsparse_tpu_torch.format import bitmap as bm
+
+    sectors, step = 0, 1 << 22
+    for i in range(0, hi.shape[0], step):
+        bits = bm.expand_bits(hi[i:i + step], lo[i:i + step])
+        sectors += int(bits.reshape(-1, 8, 8).any(-1).sum())
+    return bound(sectors * 32 + hi.shape[0] * 24 + nnz_pad * 4, 0)
+
+
+def phase3_bitmap_compress(torch, pp, name, card) -> dict:
+    """bitmap_compress at a cached product's shapes: L2-cold and warm
+    event ms, device ms (torch.profiler), and its plain version (the one
+    PyTorch path that computes the same array)."""
+    from bmsparse_tpu_torch.ops.cuda.bitmap_compress_kernel import (
+        bitmap_compress, bitmap_compress_plain,
+    )
+
+    c_rows, p = scatter_inputs(pp)
+    args = (c_rows, *p.sig_st, p.nnz_pad, p.num_c_nnz)
+    fns = {"kernel": lambda: bitmap_compress(*args),
+           "plain": lambda: bitmap_compress_plain(*args)}
+    t_cold = cold_ms(fns["kernel"], torch)
+    t_k, t_p = (median_ms(f, torch) for f in fns.values())
+    row = kernel_row("bitmap_compress", t_k, t_p,
+                     compress_bound(p.sig_st[0], p.sig_st[1], p.nnz_pad))
+    print(f"phase3 bitmap_compress {name} (rows {c_rows.shape[0]}, nnz(C) "
+          f"{p.num_c_nnz}, nnz_pad {p.nnz_pad}): kernel cold {t_cold!r} ms, "
+          f"warm {t_k!r} ms, plain {t_p!r} ms, "
+          f"bound {row['bound_ms']!r} ms [{card}]")
+    for kname, fn in fns.items():
+        print(f"phase3 bitmap_compress {name} {kname}: "
+              f"{profile_text(device_profile(fn, torch), row['bound_ms'])} "
+              f"(torch.profiler) [{card}]")
+    return row
+
+
 def phase3_compress_times(torch, compress_runs, spgemm_runs, card):
     """pp() under "mxu", "fold" and "scatter", and segment_compress_class
     at band2M's classes (event and device time, plain version, bound,
-    one index_add_ per class)."""
+    one index_add_ per class); bitmap_compress at band2M's shapes."""
     from bmsparse_tpu_torch.ops.cuda.compress_kernel import (
         segment_compress_class, segment_compress_class_plain,
     )
@@ -1291,7 +1377,8 @@ def phase3_compress_times(torch, compress_runs, spgemm_runs, card):
         print(f"phase3 segment_compress_class band2M {kname}: "
               f"{profile_text(device_profile(fn, torch), row['bound_ms'])} "
               f"(torch.profiler) [{card}]")
-    return [row]
+    return [row, phase3_bitmap_compress(torch, compress_runs["band2M"][2],
+                                        "band2M", card)]
 
 
 def phase3_spgemm_times(torch, runs, card):
@@ -2526,7 +2613,7 @@ def main() -> int:
           f"{compress_launches}")
     launches.update(compress_launches)
     errs.update(compress_errs)
-    check(len(launches) == 8 and all(n > 0 for n in launches.values()),
+    check(len(launches) == 9 and all(n > 0 for n in launches.values()),
           f"a kernel of the paths was not launched: {launches}")
     stencil = runs["stencil2M"]
     times = phase3_times(torch, runs, card)
@@ -2575,6 +2662,10 @@ def main() -> int:
                         "none: the JAX package runs these groups as XLA "
                         "over their slabs (bmsparse_tpu/ops/spmv.py "
                         "sell_apply)"),
+        "bitmap_compress": ("bmsparse_tpu_torch/csrc/bitmap_compress.cu",
+                            "none: the JAX package's scatter compress is "
+                            "XLA (bmsparse_tpu/ops/spgemm.py "
+                            "_compress_rows)"),
     }
     out = {"kernels": [
         {"name": t["name"], "route": "cuda",
@@ -2587,7 +2678,7 @@ def main() -> int:
         for t in times
     ]}
     check(sorted(k["name"] for k in out["kernels"]) == sorted(replaces),
-          "the kernels line must list all eight kernels")
+          "the kernels line must list all nine kernels")
     print(card)
     print(json.dumps(out))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """The SpGEMM compress alternatives of the PyTorch port: the gather-fold
 (spgemm_compress="fold") and the segment compress ("mxu", kernel
-segment_compress_class), on the CPU against the JAX package.
+segment_compress_class), on the CPU against the JAX package; and the
+default compress (bitmap_compress), whose plain version must equal the
+JAX package's _compress_rows bit for bit (each output position has one
+writer in both).
 
 segment_compress_class_plain is held against the Pallas kernel in
 interpret mode at rtol = atol = 1e-6 (the Pallas kernel sums through
@@ -11,8 +14,9 @@ exactly, the values at rtol 1e-6 (every output position receives one
 non-zero term, so the three sums are exact), on the cases of
 tests/test_spgemm.py's fold and MXU tests.
 
-The cases marked `gpu` hold the CUDA kernel against its plain version on
-the card and skip where there is none. They import no JAX:
+The cases marked `gpu` hold the CUDA kernels against their plain
+versions (bitmap_compress bit for bit) on the
+card and skip where there is none. They import no JAX:
     python -m pytest tests/test_torch_compress.py --noconftest -m gpu
 """
 
@@ -25,6 +29,9 @@ torch = pytest.importorskip("torch")
 
 import bmsparse_tpu_torch as bt
 from bmsparse_tpu_torch.ops import spgemm as sgt
+from bmsparse_tpu_torch.ops.cuda.bitmap_compress_kernel import (
+    bitmap_compress, bitmap_compress_plain,
+)
 from bmsparse_tpu_torch.ops.cuda.compress_kernel import (
     segment_compress_class, segment_compress_class_plain,
 )
@@ -76,6 +83,67 @@ def _segment_inputs(rpad, t_pad, step, seed=0, pad=40):
     b = np.minimum(np.cumsum(rng.integers(0, step, rpad)), t_pad - 1)
     b[rpad - pad:] = 2**30
     return w, b.astype(np.int32)
+
+
+def _rank_inputs(rows, density, seed=0, pad=0, tail=0, past=False):
+    """The default compress's operands as a plan gives them: c_rows (R, 64)
+    with NaN in every lane whose bit is unset (no compress may read it),
+    bitmap words, and offsets that are the exclusive prefix sum of the
+    rows' counts in a shuffled (natural) order, so the rows cover
+    [0, nnz) once each; `pad` zero-bitmap rows at random places with
+    random offsets; nnz_pad = nnz + tail. `past` ends the cover with a
+    row that straddles nnz and sends another row past nnz_pad: their
+    values at or past nnz must drop, and the tail reads 0.
+    Returns (c_rows, hi, lo, off, nnz_pad, nnz)."""
+    rng = np.random.default_rng(seed)
+    bits = rng.random((rows, 64)) < density
+    cnt = bits.sum(1)
+    nat = rng.permutation(rows)
+    if past:
+        live = nat[cnt[nat] > 1]
+        last, other = live[-1], live[0]
+        nat = np.append(nat[(nat != last) & (nat != other)], last)
+    off = np.zeros(rows, np.int64)
+    off[nat] = np.cumsum(cnt[nat]) - cnt[nat]
+    nnz = int(cnt[nat].sum())
+    if past:
+        nnz -= int(cnt[last] - cnt[last] // 2)
+    nnz_pad = nnz + tail
+    if past:
+        off[other] = nnz_pad + 100
+    vals = rng.standard_normal((rows, 64)).astype(np.float32)
+    vals[~bits] = np.nan
+    if pad:
+        at = np.sort(rng.choice(rows + pad, pad, replace=False))
+        bits = np.insert(bits, at - np.arange(pad), False, axis=0)
+        vals = np.insert(vals, at - np.arange(pad), np.nan, axis=0)
+        off = np.insert(off, at - np.arange(pad),
+                        rng.integers(0, max(nnz, 1), pad), axis=0)
+    hi, lo = bt.format.bitmap.pack_bits(torch.from_numpy(bits.astype(np.int32)))
+    return (torch.from_numpy(vals), hi, lo, torch.from_numpy(off), nnz_pad,
+            nnz)
+
+
+def _jax_compress_rows(ref, c_rows, hi, lo, off, nnz_pad, nnz):
+    """The JAX package's _compress_rows to nnz, then the zero tail."""
+    got = np.asarray(ref.sg._compress_rows(
+        ref.jnp.asarray(c_rows.numpy()),
+        ref.jnp.asarray(hi.numpy().astype(np.uint32)),
+        ref.jnp.asarray(lo.numpy().astype(np.uint32)),
+        ref.jnp.asarray(off.numpy().astype(np.int32)), nnz))
+    return np.concatenate([got, np.zeros(nnz_pad - nnz, got.dtype)])
+
+
+RANK_CASES = {
+    "density0": dict(rows=256, density=0.0, tail=5),
+    "density1/64": dict(rows=2048, density=1 / 64),
+    "density1/4": dict(rows=1024, density=0.25),
+    "density1": dict(rows=512, density=1.0),
+    "padding": dict(rows=1024, density=0.25, pad=300),
+    "past_nnz_pad": dict(rows=1024, density=0.25, tail=20, past=True),
+    "empty": dict(rows=0, density=0.25, pad=128, tail=1),
+    "zero_tail": dict(rows=1024, density=0.25, pad=40, tail=777),
+}
 
 
 def _banded(n, band, seed):
@@ -157,6 +225,38 @@ def test_segment_compress_drops_rows_outside():
         segment_compress_class(w, b.long(), 4)
     with pytest.raises(ValueError):
         segment_compress_class(w, b, 2**30)
+
+
+# ---------------------------------------------------------------------------
+# bitmap_compress: the plain version against the JAX package's _compress_rows
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("case", list(RANK_CASES))
+def test_bitmap_compress_plain_matches_compress_rows(ref, case):
+    c_rows, hi, lo, off, nnz_pad, nnz = _rank_inputs(**RANK_CASES[case])
+    want = _jax_compress_rows(ref, c_rows, hi, lo, off, nnz_pad, nnz)
+    assert want.shape == (nnz_pad,) and not want[nnz:].any()
+    before = bitmap_compress.launches
+    for got in (bitmap_compress_plain(c_rows, hi, lo, off, nnz_pad, nnz),
+                bitmap_compress(c_rows, hi, lo, off, nnz_pad, nnz)):
+        assert got.dtype == torch.float32
+        assert np.array_equal(got.numpy(), want)
+    got = bitmap_compress_plain(c_rows.double(), hi, lo, off, nnz_pad, nnz)
+    assert np.array_equal(got.numpy(), want.astype(np.float64))
+    assert bitmap_compress.launches == before       # CPU: no kernel
+
+
+def test_bitmap_compress_checks_its_operands():
+    c_rows, hi, lo, off, nnz_pad, nnz = _rank_inputs(64, 0.25)
+    with pytest.raises(TypeError):
+        bitmap_compress(c_rows.double(), hi, lo, off, nnz_pad, nnz)
+    with pytest.raises(TypeError):
+        bitmap_compress(c_rows[:, :32], hi, lo, off, nnz_pad, nnz)
+    with pytest.raises(ValueError):
+        bitmap_compress(c_rows, hi.int(), lo, off, nnz_pad, nnz)
+    with pytest.raises(ValueError):
+        bitmap_compress(c_rows, hi, lo, off[:-1], nnz_pad, nnz)
+    with pytest.raises(ValueError):
+        bitmap_compress(c_rows, hi, lo, off, nnz_pad, nnz_pad + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -253,8 +353,45 @@ def test_compress_modes_on_card(cuda, compress_mode, mode):
     c_sc = bt.spgemm(at, btm)
     compress_mode(mode)
     before = segment_compress_class.launches
+    before_bc = bitmap_compress.launches
     pp = bt.prepare_product(at, btm)
     assert pp.compress_mode == mode
     _same_c(pp(), c_sc)
     launched = segment_compress_class.launches - before
     assert launched == (len(pp.plan.groups) if mode == "mxu" else 0)
+    assert bitmap_compress.launches == before_bc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [*RANK_CASES, "rows300k"])
+def test_bitmap_compress_kernel_on_card(cuda, case):
+    kw = RANK_CASES.get(case, dict(rows=300_000, density=13.9 / 64, pad=4096,
+                                   tail=1000))
+    args = [x.to(cuda) if torch.is_tensor(x) else x
+            for x in _rank_inputs(**kw)]
+    c_rows, hi, lo, off, nnz_pad, nnz = args
+    want = bitmap_compress_plain(c_rows, hi, lo, off, nnz_pad, nnz)
+    before = bitmap_compress.launches
+    for _ in range(2):                 # the tail is written, not inherited
+        got = bitmap_compress(c_rows, hi, lo, off, nnz_pad, nnz)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        got.fill_(float("nan"))
+        del got
+    assert bitmap_compress.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_bitmap_compress_once_per_product_on_card(cuda):
+    """The cached product's default compress is the kernel, one launch per
+    pp(); C equals the plain route's (structure exactly, values to the
+    sum order's rounding)."""
+    at, btm = _port_operands("banded8192", device=cuda)
+    pp = bt.prepare_product(at, btm)
+    assert pp.compress_mode == "scatter"
+    for _ in range(3):
+        before = bitmap_compress.launches
+        c = pp()
+        torch.cuda.synchronize()
+        assert bitmap_compress.launches == before + 1
+    _same_c(c, bt.prepare_product(at, btm, impl="plain")())

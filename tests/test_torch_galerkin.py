@@ -14,8 +14,9 @@ device structure operations under it (format/layout.py).
     pattern exact, the values within float32 rounding of their scale;
   * an A of another structure raises.
 
-The case marked `gpu` runs the chain under impl="auto" on the card (the
-product kernels) against impl="plain" there; it imports no JAX:
+The cases marked `gpu` run the chain under impl="auto" on the card (the
+product kernels and the bitmap-rank compress) against impl="plain" there;
+they import no JAX:
     python -m pytest tests/test_torch_galerkin.py --noconftest -m gpu
 """
 
@@ -336,6 +337,35 @@ def test_galerkin_chain_on_the_card():
     torch.cuda.synchronize()
     launched = sk.numeric_sell.launches + wk.numeric_window.launches - before
     assert 2 * len(gals) <= launched <= 4 * len(gals)
+
+
+@pytest.mark.gpu
+def test_galerkin_compress_kernel_on_the_card():
+    """Each level call compresses its two products with bitmap_compress
+    (two launches), and A_c equals impl="plain"'s: the same structure,
+    the values within the products' sum-order rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from bmsparse_tpu_torch.ops.cuda.bitmap_compress_kernel import (
+        bitmap_compress,
+    )
+
+    _, _, gals, _, outs, a0_new = _chain(12, 3, "auto", "cuda")
+    _, _, _, _, plain, _ = _chain(12, 3, "plain", "cuda")
+    for c, c_plain in zip(outs, plain):
+        for f in FIELDS[:-1]:
+            assert torch.equal(getattr(c, f), getattr(c_plain, f)), f
+        assert (c.nb, c.nnz, c.shape) == (c_plain.nb, c_plain.nnz,
+                                          c_plain.shape)
+        scale = float(c_plain.values.abs().max())
+        torch.testing.assert_close(c.values, c_plain.values, rtol=GAP,
+                                   atol=GAP * scale)
+    a = _to_bm(a0_new, "cuda")
+    for gal in gals:
+        before = bitmap_compress.launches
+        a = gal(a)
+        torch.cuda.synchronize()
+        assert bitmap_compress.launches == before + 2
 
 
 def test_the_benchmark_holds_the_same_reference():

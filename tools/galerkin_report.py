@@ -52,13 +52,15 @@ def plan_stats(pp) -> dict:
 
 
 def counters() -> dict:
+    from bmsparse_tpu_torch.ops.cuda import bitmap_compress_kernel as bk
     from bmsparse_tpu_torch.ops.cuda import compress_kernel as ck
     from bmsparse_tpu_torch.ops.cuda import spgemm_kernel as sk
     from bmsparse_tpu_torch.ops.cuda import spgemm_window_kernel as wk
 
     return {"numeric_sell": sk.numeric_sell.launches,
             "numeric_window": wk.numeric_window.launches,
-            "segment_compress_class": ck.segment_compress_class.launches}
+            "segment_compress_class": ck.segment_compress_class.launches,
+            "bitmap_compress": bk.bitmap_compress.launches}
 
 
 def level_spans(fn) -> dict:
