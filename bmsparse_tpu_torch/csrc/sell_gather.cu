@@ -1,16 +1,19 @@
 // The SELL tiers' gathered groups for Hopper (sm_90a), from the tier's pack.
 //
 // Replaces no TPU kernel: the JAX package computes the SELL groups without
-// a window plan, and the overflow mini-SELL, with XLA over their slabs
-// (bmsparse_tpu/ops/spmv.py, sell_apply). Their slabs hold cw * 8
-// coefficients per slot, 98.8% zeros at Graph500 scale 20 (8.11 GB for
-// 101 MB of values), so this kernel reads the tier's GatherPack
+// a window plan, and the overflow mini-SELL, with XLA over dense slabs
+// (bmsparse_tpu/ops/spmv.py, sell_apply), which hold cw * 8 coefficients
+// per slot, 98.8% zeros at Graph500 scale 20 (8.11 GB for 101 MB of
+// values). This kernel reads the tier's GatherPack
 // (ops/cuda/sell_gather_kernel.py), built once per matrix: each nonzero
 // once, its value (float32, or bfloat16 converted to float32 in registers)
 // and its global scalar column (int32), sorted by (pack row, column), the
 // rows cut into segments of at most SEG_LEN entries. It computes
-//     out[rows[r]] = sum over the entries e of pack row r: vals[e] * v[cols[e]]
-// with v read as 0 at or past n, for every pack row r, empty rows included.
+//     out[rows[r]] = sum over the entries e of pack row r:
+//                    vals[e] * v[cols[e] - col_off]
+// with v read as 0 outside [0, n), for every pack row r, empty rows
+// included. col_off is where v starts in the whole vector: 0 on one device,
+// a shard's window start in the multi-device halo mode.
 //
 // What bounds it on the H100: the pack's bytes in device memory (8 bytes
 // per entry in float32, 6 in bfloat16) and the gathers of v, one 32-byte
@@ -69,7 +72,8 @@ __global__ void __launch_bounds__(kThreads)
                                 const int* __restrict__ cols,
                                 const int64_t* __restrict__ seg_off,
                                 const float* __restrict__ v, int64_t nseg,
-                                int64_t n, float* __restrict__ partial) {
+                                int64_t n, int64_t col_off,
+                                float* __restrict__ partial) {
   const int64_t s =
       static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / kWarp;
   if (s >= nseg) return;
@@ -83,7 +87,8 @@ __global__ void __launch_bounds__(kThreads)
     const int4 c = __ldg(reinterpret_cast<const int4*>(cols + e));
     float a[kVec];
     load4(vals, e, a);
-    const int col[kVec] = {c.x, c.y, c.z, c.w};
+    const int64_t col[kVec] = {c.x - col_off, c.y - col_off, c.z - col_off,
+                               c.w - col_off};
 #pragma unroll
     for (int m = 0; m < kVec; ++m) {
       const bool in =
@@ -117,13 +122,15 @@ __global__ void __launch_bounds__(kRowThreads)
 template <typename T>
 cudaError_t launch(const void* vals, const int* cols, const int64_t* seg_off,
                    int64_t nseg, const int64_t* row_seg, const int* rows,
-                   int64_t nrows, const float* v, int64_t n, float* partial,
-                   float* out, int64_t out_len, cudaStream_t s) {
+                   int64_t nrows, const float* v, int64_t n,
+                   int64_t col_off, float* partial, float* out,
+                   int64_t out_len, cudaStream_t s) {
   if (nseg > 0) {
     const int64_t blocks = (nseg + kWarps - 1) / kWarps;
     sell_gather_segments_kernel<T>
         <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-            static_cast<const T*>(vals), cols, seg_off, v, nseg, n, partial);
+            static_cast<const T*>(vals), cols, seg_off, v, nseg, n, col_off,
+            partial);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -144,8 +151,9 @@ extern "C" int bmsp_sell_gather(const void* vals, int vals_is_bf16,
                                 const void* cols, const void* seg_off,
                                 int64_t nseg, const void* row_seg,
                                 const void* rows, int64_t nrows,
-                                const void* v, int64_t n, void* partial,
-                                void* out, int64_t out_len, void* stream) {
+                                const void* v, int64_t n, int64_t col_off,
+                                void* partial, void* out, int64_t out_len,
+                                void* stream) {
   if (nseg < 0 || nrows < 0 || n < 0 || out_len < 0 ||
       (nseg + kWarps - 1) / kWarps > 0x7fffffff ||
       (nrows + kRowThreads - 1) / kRowThreads > 0x7fffffff) {
@@ -160,9 +168,9 @@ extern "C" int bmsp_sell_gather(const void* vals, int vals_is_bf16,
   auto* pf = static_cast<float*>(partial);
   auto* of = static_cast<float*>(out);
   if (vals_is_bf16) {
-    return launch<__nv_bfloat16>(vals, c, so, nseg, rs, r, nrows, vf, n, pf,
-                                 of, out_len, s);
+    return launch<__nv_bfloat16>(vals, c, so, nseg, rs, r, nrows, vf, n,
+                                 col_off, pf, of, out_len, s);
   }
-  return launch<float>(vals, c, so, nseg, rs, r, nrows, vf, n, pf, of,
-                       out_len, s);
+  return launch<float>(vals, c, so, nseg, rs, r, nrows, vf, n, col_off, pf,
+                       of, out_len, s);
 }

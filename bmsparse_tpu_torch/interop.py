@@ -16,7 +16,7 @@ import torch
 
 from .format import bitmap as bm
 from .format.bmsparse import BmSparse
-from .ops.cuda.sell_gather_kernel import pack_from_slabs
+from .ops.cuda.sell_gather_kernel import GatherPack, gather_pack
 from .ops.cuda.sell_kernel import pack_group
 from .ops.cuda.spgemm_window_kernel import _SENT_REL
 from .ops.plan import Prepared
@@ -24,8 +24,6 @@ from .ops.route import StreamPlan
 from .ops.spgemm import _product_launches
 
 _PLAN_TENSORS = ("dia", "out_gather", "ovf_gather")
-_PLAN_GROUPS = ("sell_dense", "sell_bcol", "sell_ws", "sell_rel",
-                "ovf_dense", "ovf_bcol")
 _PLAN_STATICS = ("dia_offsets", "sell_ks", "sell_rows", "ovf_ks",
                  "ovf_rows")
 
@@ -63,44 +61,79 @@ def bmsparse_from_numpy(arrays: Mapping[str, Any], num_rows: int,
 
 def prepared_from_numpy(m: BmSparse, arrays: Mapping[str, Any],
                         device=None) -> Prepared:
-    """A Prepared plan for `m` from the plan's arrays, keyed by the
-    Prepared field names: plan_dtype (a dtype name), dia, out_gather,
-    ovf_gather (arrays or None), the per-group tuples sell_dense,
-    sell_bcol, sell_ws, sell_rel, ovf_dense, ovf_bcol (entries may be
-    None), the statics dia_offsets, sell_ks, sell_rows, ovf_ks, ovf_rows,
-    and optionally `stream`: a mapping of the StreamPlan fields (arrays
-    and statics) or None. The windowed groups' packs (sell_pack) are
-    built here from their slabs, as prepare() builds them, and so are the
-    gathered groups' (sell_gpack, ovf_gpack)."""
+    """A Prepared plan for `m` from the JAX package's plan arrays, keyed
+    by its Prepared field names: plan_dtype (a dtype name), dia,
+    out_gather, ovf_gather (arrays or None), the per-group tuples of its
+    slabs sell_dense (cw, chunks, K, 8, 128), sell_bcol, sell_ws,
+    sell_rel, ovf_dense, ovf_bcol (entries may be None), the statics
+    dia_offsets, sell_ks, sell_rows, ovf_ks, ovf_rows, and optionally
+    `stream`: a mapping of the StreamPlan fields (arrays and statics) or
+    None. The slabs are read on the host and not kept: the windowed
+    groups' packs (sell_pack) are cut from them as prepare() cuts them,
+    and so are the gathered groups' (sell_gpack, ovf_gpack)."""
     device = m.device if device is None else device
-    fields: dict = {f: tensor_from_numpy(arrays.get(f), device)
+    fields: dict = {f: tensor_from_numpy(arrays.get(f))
                     for f in _PLAN_TENSORS}
-    for f in _PLAN_GROUPS:
-        fields[f] = tuple(tensor_from_numpy(a, device)
-                          for a in arrays.get(f, ()))
     for f in _PLAN_STATICS:
         v = arrays.get(f, ())
         fields[f] = tuple(int(x) for x in v) if isinstance(
             v, (tuple, list)) else int(v)
+    slabs = {f: tuple(tensor_from_numpy(a) for a in arrays.get(f, ()))
+             for f in ("sell_dense", "sell_bcol", "sell_ws", "sell_rel",
+                       "ovf_dense", "ovf_bcol")}
     fields["sell_pack"] = tuple(
         None if rel is None else pack_group(d, rel, ws)
-        for d, rel, ws in zip(fields["sell_dense"], fields["sell_rel"],
-                              fields["sell_ws"]))
+        for d, rel, ws in zip(slabs["sell_dense"], slabs["sell_rel"],
+                              slabs["sell_ws"]))
     for tier, windowed in (("sell", fields["sell_pack"]), ("ovf", ())):
-        dense = fields[f"{tier}_dense"]
+        dense = slabs[f"{tier}_dense"]
+        fields[f"{tier}_chunks"] = tuple(d.shape[1] for d in dense)
         gathered = [g for g in range(len(dense))
                     if g >= len(windowed) or windowed[g] is None]
         fields[f"{tier}_gpack"] = pack_from_slabs(
-            dense, fields[f"{tier}_bcol"], gathered,
-            fields[f"{tier}_rows"]).to(device) if gathered else None
+            dense, slabs[f"{tier}_bcol"], gathered,
+            fields[f"{tier}_rows"]) if gathered else None
     st = arrays.get("stream")
     if st is not None:
         fields["stream"] = StreamPlan(
-            **{f: tensor_from_numpy(st[f], device)
-               for f in StreamPlan.TENSORS},
+            **{f: tensor_from_numpy(st[f]) for f in StreamPlan.TENSORS},
             **{f: int(st[f]) for f in StreamPlan.STATICS})
-    return Prepared(m=m.to(device), plan_dtype=str(arrays["plan_dtype"]),
-                    **fields)
+    return Prepared(m=m, plan_dtype=str(arrays["plan_dtype"]),
+                    **fields).to(device)
+
+
+def pack_from_slabs(dense: tuple, bcol: tuple, groups,
+                    rows_total: int) -> GatherPack:
+    """The GatherPack of a tier's groups `groups` read from the JAX
+    package's slabs dense[g] (cw, cap, kg, 8, 128) and bcol[g] (cap * kg *
+    128,). Every coefficient whose bits are not zero is packed.
+    rows_total: the tier's stacked rows; groups are stacked in order, each
+    cap * 128 rows."""
+    caps = [d.shape[1] for d in dense]
+    bases = np.cumsum([0] + [c * 128 for c in caps])
+    ibits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    row_l, col_l, val_l, rows_l = [], [], [], []
+    roff = 0
+    for g in groups:
+        d = dense[g].detach().cpu().contiguous()
+        cw, cap, kg = d.shape[:3]
+        w, c, k, i, lane = (x.numpy() for x in torch.nonzero(
+            d.view(ibits[d.element_size()]), as_tuple=True))
+        b = bcol[g].detach().cpu().numpy().reshape(cap, kg, 128)
+        stacked = np.arange(bases[g] * 8, bases[g + 1] * 8)
+        row_l.append(roff + (c * 128 + lane) * 8 + i)
+        col_l.append(b[c, k, lane].astype(np.int64) * cw + w)
+        val_l.append(d[tuple(torch.from_numpy(x)
+                             for x in (w, c, k, i, lane))])
+        rows_l.append(stacked)
+        roff += len(stacked)
+    rows_l.append(np.arange(rows_total * 8, rows_total * 8 + 8))
+    dtype = dense[0].dtype
+    return gather_pack(
+        np.concatenate(row_l) if row_l else np.zeros(0, np.int64),
+        np.concatenate(col_l) if col_l else np.zeros(0, np.int64),
+        torch.cat(val_l) if val_l else torch.zeros(0, dtype=dtype),
+        np.concatenate(rows_l), dtype)
 
 
 def _words(a, device) -> torch.Tensor:

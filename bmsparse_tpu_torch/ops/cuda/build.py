@@ -123,7 +123,7 @@ def load() -> ctypes.CDLL:
                                      p, p]
     lib.bmsp_sell_window.restype = i32
     lib.bmsp_sell_gather.argtypes = [p, i32, p, p, i64, p, p, i64, p, i64,
-                                     p, p, i64, p]
+                                     i64, p, p, i64, p]
     lib.bmsp_sell_gather.restype = i32
     for fn in (lib.bmsp_numeric_sell, lib.bmsp_numeric_window):
         fn.argtypes = [p, p, i32, i64, i64, p, p, p, i64, i64, p, p]

@@ -2,26 +2,29 @@
 its plain torch version, and the tier's compact layout (`GatherPack`,
 built once per matrix by `gather_pack`).
 
-A SELL K-group without a window plan gathers v per slot. Its slab holds
-cw * 8 coefficients per slot, nearly all zeros where rows are scattered
-(98.8% of 8.1 GB at Graph500 scale 20, cw = 8), so the tier reads a pack
-of its nonzeros instead, one per tier over all of its gathered groups:
+A SELL K-group without a window plan gathers v per slot. Its rows are
+scattered (Graph500's hubs, a road network's overflow links), so the
+tier holds its nonzeros only, one pack per tier over all of its
+gathered groups:
 
-    out[rows[r]] = sum over the entries e of pack row r: vals[e] * v[cols[e]]
+    out[rows[r]] = sum over the entries e of pack row r:
+                   vals[e] * v[cols[e] - col_off]
 
-with v read as 0 at or past n. Each entry holds its value (plan dtype)
-and its global scalar column (int32); entries are sorted by (pack row,
-column). A pack row is a scalar row of the tier's stacked (rows, 8)
-layout, the layout that out_gather reads: every row of the gathered
-groups, the tier's trailing zero row included, whether it has entries or
-not. The entries of a pack row are cut into segments of at most SEG_LEN
-entries: segment s holds entries [seg_off[s],
+with v read as 0 outside [0, n). col_off is the column of the whole
+vector at which v starts: 0 on one device, a shard's window start in the
+multi-device halo mode (parallel/spmv.py). Each entry holds its value
+(plan dtype) and its global scalar column (int32); entries are sorted by
+(pack row, column). A pack row is a scalar row of the tier's stacked
+(rows, 8) layout, the layout that out_gather reads: every row of the
+gathered groups, the tier's trailing zero row included, whether it has
+entries or not. The entries of a pack row are cut into segments of at
+most SEG_LEN entries: segment s holds entries [seg_off[s],
 seg_off[s + 1]) and row r the segments [row_seg[r], row_seg[r + 1]), none
 where it has no entries. vals and cols are padded with zeros to a
 multiple of 4 entries, for the kernel's vector loads.
 
-The JAX package computes these groups with XLA over the slab, not in a
-Pallas kernel; this kernel replaces no TPU kernel.
+The JAX package computes these groups with XLA over dense slabs, not in
+a Pallas kernel; this kernel replaces no TPU kernel.
 """
 
 from __future__ import annotations
@@ -65,6 +68,14 @@ class GatherPack:
         """Its fields by name (what io/binary.py stores)."""
         return {f: getattr(self, f) for f in self.TENSORS + self.STATICS}
 
+    def entry_rows(self) -> torch.Tensor:
+        """The pack row of each entry but the padding."""
+        dev = self.vals.device
+        seg_row = torch.repeat_interleave(
+            torch.arange(self.rows.shape[0], device=dev),
+            torch.diff(self.row_seg))
+        return torch.repeat_interleave(seg_row, torch.diff(self.seg_off))
+
 
 def gather_pack(row: np.ndarray, col: np.ndarray, vals,
                 rows: np.ndarray, dtype: torch.dtype) -> GatherPack:
@@ -102,41 +113,6 @@ def gather_pack(row: np.ndarray, col: np.ndarray, vals,
     )
 
 
-def pack_from_slabs(dense: tuple, bcol: tuple, groups,
-                    rows_total: int) -> GatherPack:
-    """The GatherPack of a tier's groups `groups` read from their slabs
-    dense[g] (cw, cap, kg, 8, 128) and bcol[g] (cap * kg * 128,) (for a
-    plan carried across from its arrays, or a group that loses its window
-    plan under a cast). Every coefficient whose bits are not zero is
-    packed. rows_total: the tier's stacked rows; groups are stacked in
-    order, each cap * 128 rows."""
-    caps = [d.shape[1] for d in dense]
-    bases = np.cumsum([0] + [c * 128 for c in caps])
-    ibits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
-    row_l, col_l, val_l, rows_l = [], [], [], []
-    roff = 0
-    for g in groups:
-        d = dense[g].detach().cpu().contiguous()
-        cw, cap, kg = d.shape[:3]
-        w, c, k, i, lane = (x.numpy() for x in torch.nonzero(
-            d.view(ibits[d.element_size()]), as_tuple=True))
-        b = bcol[g].detach().cpu().numpy().reshape(cap, kg, 128)
-        stacked = np.arange(bases[g] * 8, bases[g + 1] * 8)
-        row_l.append(roff + (c * 128 + lane) * 8 + i)
-        col_l.append(b[c, k, lane].astype(np.int64) * cw + w)
-        val_l.append(d[tuple(torch.from_numpy(x)
-                             for x in (w, c, k, i, lane))])
-        rows_l.append(stacked)
-        roff += len(stacked)
-    rows_l.append(np.arange(rows_total * 8, rows_total * 8 + 8))
-    dtype = dense[0].dtype
-    return gather_pack(
-        np.concatenate(row_l) if row_l else np.zeros(0, np.int64),
-        np.concatenate(col_l) if col_l else np.zeros(0, np.int64),
-        torch.cat(val_l) if val_l else torch.zeros(0, dtype=dtype),
-        np.concatenate(rows_l), dtype)
-
-
 def _check(pack: GatherPack, v: torch.Tensor, n: int,
            out: torch.Tensor) -> None:
     e, s, r = (pack.vals.shape[0], pack.seg_off.shape[0] - 1,
@@ -164,27 +140,24 @@ def _check(pack: GatherPack, v: torch.Tensor, n: int,
 
 
 def sell_gather_plain(pack: GatherPack, v: torch.Tensor, n: int,
-                      out: torch.Tensor) -> torch.Tensor:
+                      out: torch.Tensor, col_off: int = 0) -> torch.Tensor:
     """Plain torch version of `sell_gather`: a gather, a multiply and an
     index_add_ (the sum in out's dtype)."""
     _check(pack, v, n, out)
     dev = pack.vals.device
     e = pack.nnz
-    nseg = torch.diff(pack.seg_off)
-    seg_row = torch.repeat_interleave(
-        torch.arange(pack.rows.shape[0], device=dev), torch.diff(pack.row_seg))
-    row = torch.repeat_interleave(seg_row, nseg)
-    col = pack.cols[:e].long()
-    x = torch.where(col < n, v[col.clamp(max=max(n - 1, 0))],
+    col = pack.cols[:e].long() - col_off
+    x = torch.where((col >= 0) & (col < n), v[col.clamp(0, max(n - 1, 0))],
                     torch.zeros((), dtype=v.dtype, device=dev))
     acc = torch.zeros(pack.rows.shape[0], dtype=out.dtype, device=dev)
-    acc.index_add_(0, row, pack.vals[:e].to(out.dtype) * x.to(out.dtype))
+    acc.index_add_(0, pack.entry_rows(),
+                   pack.vals[:e].to(out.dtype) * x.to(out.dtype))
     out[pack.rows.long()] = acc
     return out
 
 
 def sell_gather(pack: GatherPack, v: torch.Tensor, n: int,
-                out: torch.Tensor) -> torch.Tensor:
+                out: torch.Tensor, col_off: int = 0) -> torch.Tensor:
     """The gathered groups' kernel: writes out[rows[r]] for every pack row
     r (module docstring) and leaves the rest of `out` as it was. CUDA
     tensors launch csrc/sell_gather.cu: two kernels, the segments' sums
@@ -194,7 +167,7 @@ def sell_gather(pack: GatherPack, v: torch.Tensor, n: int,
     _check(pack, v, n, out)
     dev = pack.vals.device
     if dev.type == "cpu":
-        return sell_gather_plain(pack, v, n, out)
+        return sell_gather_plain(pack, v, n, out, col_off)
     if dev.type != "cuda":
         raise ValueError(f"sell_gather: unsupported device {dev}")
     if pack.vals.dtype not in (torch.float32, torch.bfloat16):
@@ -215,7 +188,7 @@ def sell_gather(pack: GatherPack, v: torch.Tensor, n: int,
             pack.vals.data_ptr(), int(pack.vals.dtype == torch.bfloat16),
             pack.cols.data_ptr(), pack.seg_off.data_ptr(), nseg,
             pack.row_seg.data_ptr(), pack.rows.data_ptr(), nrows,
-            v.data_ptr(), n, partial.data_ptr(), out.data_ptr(),
+            v.data_ptr(), n, col_off, partial.data_ptr(), out.data_ptr(),
             out.shape[0], torch.cuda.current_stream().cuda_stream)
     build.check(err, "sell_gather launch")
     sell_gather.launches += (nseg > 0) + (nrows > 0)

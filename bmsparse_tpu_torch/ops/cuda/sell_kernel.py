@@ -200,12 +200,10 @@ def _check(pack: SellPack, v: torch.Tensor, n: int) -> None:
             raise ValueError("sell_window operands must be contiguous")
 
 
-def sell_window_plain(pack: SellPack, v: torch.Tensor,
-                      n: int) -> torch.Tensor:
-    """Plain torch version of `sell_window` (the sum is float32, or
-    float64 for float64 values): every entry of the pack, padding
-    included, added to its row."""
-    cdt = torch.promote_types(pack.vals.dtype, torch.float32)
+def _entry_coords(pack: SellPack) -> tuple:
+    """Each entry's output row, (c * 8 + i) * 128 + l of the group's
+    (cap, 8, 128) output, and its global scalar column, padding entries
+    included (on the pack's device)."""
     dev = pack.vals.device
     off = pack.slice_off
     length = (off[1:] - off[:-1]) // SLICE
@@ -216,6 +214,27 @@ def sell_window_plain(pack: SellPack, v: torch.Tensor,
     chunk = s // (CHUNK_ROWS // SLICE)
     row = chunk * CHUNK_ROWS + pack.rows[s * SLICE + t].long()
     col = pack.ws[chunk].long() * pack.cw + pack.cols.long()
+    return row, col
+
+
+def pack_entries(pack: SellPack) -> tuple:
+    """The nonzeros that pack_group packed, as (row, col, vals): output
+    rows as in `_entry_coords`, global scalar columns, values; the
+    padding entries (zero bits) are left out."""
+    row, col = _entry_coords(pack)
+    ibits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    keep = pack.vals.view(ibits[pack.vals.element_size()]) != 0
+    return row[keep], col[keep], pack.vals[keep]
+
+
+def sell_window_plain(pack: SellPack, v: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """Plain torch version of `sell_window` (the sum is float32, or
+    float64 for float64 values): every entry of the pack, padding
+    included, added to its row."""
+    cdt = torch.promote_types(pack.vals.dtype, torch.float32)
+    dev = pack.vals.device
+    row, col = _entry_coords(pack)
     x = torch.where(col < n, v[col.clamp(max=max(n - 1, 0))],
                     torch.zeros((), dtype=v.dtype, device=dev))
     out = torch.zeros(pack.cap * CHUNK_ROWS, dtype=cdt, device=dev)

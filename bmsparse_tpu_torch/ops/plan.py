@@ -13,8 +13,11 @@ Tier 2 — SELL (sliced-ELL over slots of 8 rows x cw columns, C = 128
   lanes): the remaining slots are organized with the block-row index on
   the 128-lane axis. Block rows are sorted by slot count (SELL-sigma),
   grouped into chunks of 128 rows, and each chunk padded to its K class.
-  Groups whose chunks each fit one WINDOW_UNITS-wide column window carry
-  a window plan (sell_ws, sell_rel) and a compact pack of their nonzeros
+  These are the JAX package's routing decisions; its plan holds each
+  group as a dense slab of cw * 8 coefficients per slot, which the port
+  builds only on the host, for a group with a window plan, and only to
+  cut that group's pack. Groups whose chunks each fit one
+  WINDOW_UNITS-wide column window get a compact pack of their nonzeros
   (sell_pack) for the windowed kernel (csrc/sell_window.cu); the others
   are packed together, each nonzero once (sell_gpack), for the gathered
   groups' kernel (csrc/sell_gather.cu).
@@ -31,8 +34,8 @@ Stream — scattered structures (web graphs, uniform random matrices): the
 Plans persist on disk through io/binary.py (save_prepared, load_prepared).
 The multi-device options of prepare() (`force_layout`, `col_shift`) build
 one shard's plan with the static structure that parallel/plan.py unifies
-across shards; such plans keep the fixed K ladder, gather per slot and
-have no stream tier, as in the JAX package.
+across shards; such plans keep the fixed K ladder, have no windowed
+groups and no stream tier, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,15 +51,17 @@ from ..format.bmsparse import BmSparse, cdiv
 from ..utils.timing import span
 from . import route
 from .cuda import sell_kernel as _sk
-from .cuda.sell_gather_kernel import GatherPack, gather_pack, pack_from_slabs
+from .cuda.sell_gather_kernel import GatherPack, gather_pack
 
 # The port's own stamp on plan dumps (io/binary.save_prepared): a dump
 # loads only under the stamp it was written with. Bump it whenever a
 # field of Prepared or StreamPlan changes. It starts at the JAX package's
 # layout 10, whose arrays the port's plans equal array for array; 11
 # adds the windowed groups' packs (sell_pack), 12 the gathered groups'
-# (sell_gpack, ovf_gpack).
-PLAN_LAYOUT_VERSION = 12
+# (sell_gpack, ovf_gpack); 13 drops the JAX package's dense slabs and
+# their column and window arrays, which no SpMV read any more, for the
+# groups' chunk counts (sell_chunks, ovf_chunks).
+PLAN_LAYOUT_VERSION = 13
 
 SELL_C = 128                 # lanes per chunk
 DIA_MIN_FILL = 0.15          # min diagonal fill to justify a dense pass
@@ -148,17 +153,10 @@ class Prepared:
     dia_offsets: tuple = ()
 
     # --- SELL tier: groups of 128-row chunks sharing padded depth K ---
-    # sell_dense[g]: (cw, chunks_g, K_g, 8, 128), [w, chunk, k, i, lane]
-    # sell_bcol[g]: (chunks_g * K_g * 128,) int32 flat, padding -> ncu
-    sell_dense: tuple = ()
-    sell_bcol: tuple = ()
+    # group g: sell_chunks[g] chunks of 128 block rows, depth sell_ks[g];
+    # the groups' rows are stacked in group order
     sell_ks: tuple = ()
-    # window plan per group: sell_ws[g] (chunks_g,) int32 window starts in
-    # column units and sell_rel[g] (chunks_g, K_g, 128) int32
-    # window-relative columns, or None where the group gathers per slot.
-    # Padding slots store rel 0 (their dense values are zero).
-    sell_ws: tuple = ()
-    sell_rel: tuple = ()
+    sell_chunks: tuple = ()
     # sell_pack[g]: the windowed group's nonzeros for the kernel
     # (ops/cuda/sell_kernel.SellPack), None where the group gathers
     sell_pack: tuple = ()
@@ -171,10 +169,9 @@ class Prepared:
     out_gather: torch.Tensor | None = None   # (block_rows,) int32
     sell_rows: int = 0
 
-    # --- Overflow tier: per-row outlier slots, gathered per slot ---
-    ovf_dense: tuple = ()
-    ovf_bcol: tuple = ()
+    # --- Overflow tier: per-row outlier slots, every group gathered ---
     ovf_ks: tuple = ()
+    ovf_chunks: tuple = ()
     ovf_gather: torch.Tensor | None = None   # (block_rows,) int32
     ovf_rows: int = 0
     ovf_gpack: GatherPack | None = None
@@ -195,9 +192,8 @@ class Prepared:
             self, m=self.m.to(device), dense_flat_=None,
             stream=None if self.stream is None else self.stream.to(device),
             **{f: mv(getattr(self, f))
-               for f in ("dia", "sell_dense", "sell_bcol", "sell_ws",
-                         "sell_rel", "sell_pack", "sell_gpack", "out_gather",
-                         "ovf_dense", "ovf_bcol", "ovf_gather", "ovf_gpack")})
+               for f in ("dia", "sell_pack", "sell_gpack", "out_gather",
+                         "ovf_gather", "ovf_gpack")})
 
     @property
     def dense_flat(self) -> torch.Tensor:
@@ -270,13 +266,14 @@ def _build_sell_tier(
     in the layout parallel/plan.py unifies).
 
     elig_split: compute per-chunk window eligibility and split each K
-    class into an eligible group (gets a ws/rel window plan) and a
-    remainder group (gathered per slot).
+    class into an eligible group (may get a window plan) and a remainder
+    group (gathered).
 
-    Returns (dense, bcol, ks, ws, rel, out_gather_np, rows_total, gpack):
-    the per-group arrays as CPU tensors, and the GatherPack of the groups
-    left without a window plan (None where there is none), built from the
-    scalars' coordinates as they are scattered into the slabs.
+    Returns (ks, chunks, packs, out_gather_np, rows_total, gpack): each
+    group's depth and chunk count, the SellPack of each group with a
+    window plan (None where the group gathers), the row map, and the
+    GatherPack of the groups left without a window plan (None where
+    there is none), built from the scalars' coordinates.
     """
     np_dtype = _host_dtype(dtype)
     itemsize = dtype.itemsize
@@ -366,11 +363,7 @@ def _build_sell_tier(
         ]
 
     bases = np.cumsum([0] + [cap * SELL_C for _, cap, _ in groups])
-    dense_l: list = []
-    bcol_l: list = []
-    ks_l: list = []
-    ws_l: list = []
-    rel_l: list = []
+    pack_l: list = []
     # the gathered groups' scalars: pack row, scalar column, value
     g_row: list = []
     g_col: list = []
@@ -379,30 +372,21 @@ def _build_sell_tier(
     for g, (kg, cap, gelig) in enumerate(groups):
         sel = group_of_chunk[chunk] == g if nchunks else np.zeros((0,), bool)
         ub_sel = np.nonzero(sel)[0]
-        dense_g = np.zeros((cap, kg, cw * 8, SELL_C), np_dtype)
-        bcol_g = np.full((cap, kg, SELL_C), ncu, np.int32)
         if len(ub_sel):
             cl = local_of_chunk[chunk[ub_sel]]
             kk = krank[ub_sel]
             ll = lane[ub_sel]
-            bcol_g[cl, kk, ll] = sel_ubc[ub_sel]
-            # scatter scalars of the selected slots
+            # the scalars of the selected slots
             sel_all = np.zeros((len(ubr),), bool)
             sel_all[ub_idx[ub_sel]] = True
             s_sel = sel_all[binv]
             loc = np.searchsorted(ub_idx[ub_sel], binv[s_sel])
-            dense_g[cl[loc], kk[loc], slot[s_sel], ll[loc]] = vals[s_sel]
-        dense_l.append(torch.from_numpy(np.ascontiguousarray(
-            dense_g.reshape(cap, kg, cw, 8, SELL_C)
-            .transpose(2, 0, 1, 3, 4)
-        )).to(dtype))
-        bcol_l.append(torch.from_numpy(bcol_g.reshape(-1)))
-        ks_l.append(kg)
-        # per-chunk v-window plan for the windowed SELL kernel
-        ws_g = rel_g = None
+        pack = None
         want_win = win_ok and (gelig if elig_split else True)
         if want_win and len(ub_sel) and _sk.group_vmem_ok(
                 cw, kg, itemsize):
+            bcol_g = np.full((cap, kg, SELL_C), ncu, np.int32)
+            bcol_g[cl, kk, ll] = sel_ubc[ub_sel]
             real = bcol_g != ncu                     # (cap, kg, 128)
             wmin = np.where(real, bcol_g, 2**30).min(axis=(1, 2))
             wmax = np.where(real, bcol_g, -1).max(axis=(1, 2))
@@ -418,10 +402,17 @@ def _build_sell_tier(
                 rel = np.where(
                     real, bcol_g - ws[:, None, None], 0
                 ).astype(np.int32)
-                ws_g, rel_g = torch.from_numpy(ws), torch.from_numpy(rel)
-        ws_l.append(ws_g)
-        rel_l.append(rel_g)
-        if ws_g is None:
+                # the group's slab, [w, chunk, k, i, lane], lives only
+                # until its pack is cut
+                slab = np.zeros((cap, kg, cw * 8, SELL_C), np_dtype)
+                slab[cl[loc], kk[loc], slot[s_sel], ll[loc]] = vals[s_sel]
+                pack = _sk.pack_group(torch.from_numpy(np.ascontiguousarray(
+                    slab.reshape(cap, kg, cw, 8, SELL_C)
+                    .transpose(2, 0, 1, 3, 4)
+                )).to(dtype), torch.from_numpy(rel), torch.from_numpy(ws))
+                del slab
+        pack_l.append(pack)
+        if pack is None:
             roff = sum(len(x) for x in g_rows)
             g_rows.append(np.arange(bases[g] * 8, bases[g + 1] * 8))
             if len(ub_sel):
@@ -454,7 +445,9 @@ def _build_sell_tier(
         ).astype(np.int32)
     else:
         og = np.full((nbr,), rows_total, np.int32)
-    return dense_l, bcol_l, ks_l, ws_l, rel_l, og, rows_total, gpack
+    ks = [kg for kg, _, _ in groups]
+    chunks = [cap for _, cap, _ in groups]
+    return ks, chunks, pack_l, og, rows_total, gpack
 
 
 def _choose_diagonals(
@@ -517,8 +510,8 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     local, so diagonal offset o means v[row + col_shift + o].
 
     A plan with either option or a fixed sell_unit keeps the fixed K
-    ladder and gathers every SELL group per slot, and stream is ignored
-    (no stream tier), as in the JAX package.
+    ladder and gathers every SELL group (no windowed group), and stream
+    is ignored (no stream tier), as in the JAX package.
 
     The host seconds of its phases add up in utils.timing.kept under
     "plan.coo" (the matrix's coordinates), "plan.dia" (tier 1),
@@ -571,18 +564,14 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
                 dia_offsets = tuple(int(o) for o in offs)
                 rows, cols, vals = rows[~on_dia], cols[~on_dia], vals[~on_dia]
 
-    sell_dense: list = []
-    sell_bcol: list = []
     sell_ks: list = []
-    sell_ws: list = []
-    sell_rel: list = []
+    sell_chunks: list = []
     sell_pack: list = []
     sell_gpack = None
     out_gather = None
     sell_rows = 0
-    ovf_dense: list = []
-    ovf_bcol: list = []
     ovf_ks: list = []
+    ovf_chunks: list = []
     ovf_gather = None
     ovf_rows = 0
     ovf_gpack = None
@@ -659,18 +648,16 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
                     core_idx = np.nonzero(core_mask)[0]
                     ovf_idx = np.nonzero(~core_mask)[0]
 
-            (sell_dense, sell_bcol, sell_ks, sell_ws, sell_rel,
-             og, sell_rows, sell_gpack) = _build_sell_tier(
+            (sell_ks, sell_chunks, sell_pack, og, sell_rows,
+             sell_gpack) = _build_sell_tier(
                 core_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
                 forced_groups=forced_groups, adaptive=single,
                 secondary_wlo=single, win_ok=win_ok, elig_split=win_ok,
             )
             out_gather = torch.from_numpy(og)
-            sell_pack = [None if rel is None else _sk.pack_group(d, rel, ws)
-                         for d, rel, ws in zip(sell_dense, sell_rel, sell_ws)]
             if ovf_idx is not None:
-                (ovf_dense, ovf_bcol, ovf_ks, _, _,
-                 og2, ovf_rows, ovf_gpack) = _build_sell_tier(
+                (ovf_ks, ovf_chunks, _, og2, ovf_rows,
+                 ovf_gpack) = _build_sell_tier(
                     ovf_idx, ubr, ubc, slot, vals, binv, nbr, ncu, cw, dtype,
                 )
                 ovf_gather = torch.from_numpy(og2)
@@ -678,13 +665,11 @@ def prepare(m: BmSparse, dtype: torch.dtype | None = None,
     return Prepared(
         m=m, plan_dtype=_dtype_name(dtype),
         dia=dia, dia_offsets=dia_offsets,
-        sell_dense=tuple(sell_dense), sell_bcol=tuple(sell_bcol),
-        sell_ks=tuple(sell_ks),
-        sell_ws=tuple(sell_ws), sell_rel=tuple(sell_rel),
+        sell_ks=tuple(sell_ks), sell_chunks=tuple(sell_chunks),
         sell_pack=tuple(sell_pack), sell_gpack=sell_gpack,
         out_gather=out_gather, sell_rows=sell_rows,
-        ovf_dense=tuple(ovf_dense), ovf_bcol=tuple(ovf_bcol),
-        ovf_ks=tuple(ovf_ks), ovf_gather=ovf_gather, ovf_rows=ovf_rows,
+        ovf_ks=tuple(ovf_ks), ovf_chunks=tuple(ovf_chunks),
+        ovf_gather=ovf_gather, ovf_rows=ovf_rows,
         ovf_gpack=ovf_gpack, stream=stream_plan,
     ).to(device)
 
@@ -728,43 +713,61 @@ def cast_prepared(p: Prepared, dtype: torch.dtype) -> Prepared:
     eligibility is re-checked for the target itemsize, as prepare would
     decide it; a group that keeps its window keeps its pack, values
     cast. The gathered groups' packs are cast too; where a group loses
-    its window, the tier's gathered pack is built again from the slabs."""
+    its window, its pack's entries join the tier's gathered pack."""
     if dtype == getattr(torch, p.plan_dtype):
         return p
-    cw = p.sell_dense[0].shape[0] if p.sell_dense else 8
-    ws_l: list = []
-    rel_l: list = []
-    pack_l: list = []
-    for g, kg in enumerate(p.sell_ks):
-        ok = (
-            p.sell_rel[g] is not None
-            and dtype.itemsize in (2, 4)
-            and _sk.group_vmem_ok(cw, kg, dtype.itemsize)
-        )
-        ws_l.append(p.sell_ws[g] if ok else None)
-        rel_l.append(p.sell_rel[g] if ok else None)
-        pack_l.append(p.sell_pack[g].astype(dtype) if ok else None)
-    sell_dense = tuple(d.to(dtype) for d in p.sell_dense)
-    gpack = None if p.sell_gpack is None else p.sell_gpack.astype(dtype)
-    if any(a is not None and b is None
-           for a, b in zip(p.sell_pack, pack_l)):
-        gpack = pack_from_slabs(
-            sell_dense, p.sell_bcol,
-            [g for g, pk in enumerate(pack_l) if pk is None],
-            p.sell_rows).to(sell_dense[0].device)
+    packs = tuple(
+        pk.astype(dtype) if pk is not None and dtype.itemsize in (2, 4)
+        and _sk.group_vmem_ok(pk.cw, kg, dtype.itemsize) else None
+        for pk, kg in zip(p.sell_pack, p.sell_ks))
+    lost = [g for g, (a, b) in enumerate(zip(p.sell_pack, packs))
+            if a is not None and b is None]
+    if lost:
+        gpack = _gather_lost_windows(p, packs, lost, dtype)
+    else:
+        gpack = None if p.sell_gpack is None else p.sell_gpack.astype(dtype)
     return dataclasses.replace(
         p,
         dense_flat_=None,
         plan_dtype=_dtype_name(dtype),
         dia=None if p.dia is None else p.dia.to(dtype),
-        sell_dense=sell_dense,
-        ovf_dense=tuple(d.to(dtype) for d in p.ovf_dense),
-        sell_ws=tuple(ws_l),
-        sell_rel=tuple(rel_l),
-        sell_pack=tuple(pack_l),
+        sell_pack=packs,
         sell_gpack=gpack,
         ovf_gpack=None if p.ovf_gpack is None else p.ovf_gpack.astype(dtype),
     )
+
+
+def _gather_lost_windows(p: Prepared, packs: tuple, lost: list,
+                         dtype: torch.dtype) -> GatherPack:
+    """The SELL tier's GatherPack in `dtype` once the groups `lost` have
+    lost their window (packs: the tier's windowed packs after the cast):
+    the entries of its gathered pack and of the lost groups' packs, on
+    the tier's stacked scalar rows, packed again on the host."""
+    bases = np.cumsum([0] + [c * SELL_C for c in p.sell_chunks])
+    row_l, col_l, val_l = [], [], []
+    if p.sell_gpack is not None:
+        gk = p.sell_gpack
+        row_l.append(gk.rows[gk.entry_rows()])
+        col_l.append(gk.cols[:gk.nnz])
+        val_l.append(gk.vals[:gk.nnz])
+    for g in lost:
+        # output row (c * 8 + i) * 128 + l is stacked scalar row
+        # (base + c * 128 + l) * 8 + i
+        r, col, val = _sk.pack_entries(p.sell_pack[g])
+        c, i, lane = r // _sk.CHUNK_ROWS, r // SELL_C % 8, r % SELL_C
+        row_l.append((int(bases[g]) + c * SELL_C + lane) * 8 + i)
+        col_l.append(col)
+        val_l.append(val)
+    rows = np.concatenate(
+        [np.arange(bases[g] * 8, bases[g + 1] * 8)
+         for g, pk in enumerate(packs) if pk is None]
+        + [np.arange(bases[-1] * 8, bases[-1] * 8 + 8)])
+    stacked = torch.cat([x.long() for x in row_l]).cpu().numpy()
+    return gather_pack(
+        np.searchsorted(rows, stacked),
+        torch.cat([x.long() for x in col_l]).cpu().numpy(),
+        torch.cat([x.cpu() for x in val_l]), rows, dtype,
+    ).to(p.out_gather.device)
 
 
 def as_matrix(x) -> BmSparse:

@@ -14,10 +14,9 @@ Counterpart of ``bmsparse_tpu/ops/spmv.py``. A Prepared plan
                      index_add_ in torch (ops/route.py::stream_apply)
 
 The groups without a window plan and the overflow mini-SELL are computed
-by XLA over their slabs in the JAX package; here they read a pack of
-their nonzeros (ops/cuda/sell_gather_kernel.py), except on the
-multi-device path (parallel/spmv.py), which gathers per slot from the
-slabs as the JAX package does.
+by XLA over dense slabs in the JAX package; here they read a pack of
+their nonzeros (ops/cuda/sell_gather_kernel.py), on one device and on the
+multi-device path (parallel/spmv.py) alike.
 
 impl:
   "auto"  — the CUDA kernels for float32 and bfloat16 plans on a CUDA
@@ -40,11 +39,12 @@ from __future__ import annotations
 import torch
 
 from ..config import BLOCK_HEIGHT, BLOCK_WIDTH, get_config
-from ..format.bmsparse import BmSparse, cdiv
+from ..format.bmsparse import BmSparse
 from ..utils.timing import span
 from .cuda.sell_gather_kernel import sell_gather, sell_gather_plain
 from .cuda.sell_kernel import sell_window, sell_window_plain
 from .cuda.spmv_kernel import dia_spmv, dia_spmv_plain
+from .plan import SELL_C, Prepared, prepare_cached
 from .route import stream_apply
 
 IMPLS = ("auto", "cuda", "plain")
@@ -116,20 +116,16 @@ def _spmv_prepared(p, v: torch.Tensor, impl: str) -> torch.Tensor:
             u += u_t.reshape(-1)[:npad]
         if p.sell_ks:
             with span("spmv.sell"):
-                u_t = sell_apply(
-                    p.sell_dense, p.sell_bcol, p.out_gather, vpad, nbc,
-                    sell_pack=p.sell_pack, gpack=p.sell_gpack,
-                    kernel=kernels,
-                )
+                u_t = sell_apply(p.sell_chunks, p.out_gather, vpad,
+                                 packs=p.sell_pack, gpack=p.sell_gpack,
+                                 kernel=kernels)
             u += u_t.reshape(npad)
         if p.ovf_ks:
             # per-row outlier slots: few and scattered by construction, so
             # every group reads the tier's gathered pack
             with span("spmv.overflow"):
-                u_t = sell_apply(
-                    p.ovf_dense, p.ovf_bcol, p.ovf_gather, vpad, nbc,
-                    gpack=p.ovf_gpack, kernel=kernels,
-                )
+                u_t = sell_apply(p.ovf_chunks, p.ovf_gather, vpad,
+                                 gpack=p.ovf_gpack, kernel=kernels)
             u += u_t.reshape(npad)
         if p.stream is not None:
             with span("spmv.stream"):
@@ -170,77 +166,44 @@ def dia_apply(dia: torch.Tensor, offsets: tuple, vpad: torch.Tensor,
 
 
 def sell_apply(
-    sell_dense: tuple,
-    sell_bcol: tuple,
+    chunks: tuple,
     out_gather: torch.Tensor,
     vpad: torch.Tensor,
-    nbc: int,
-    sell_pack: tuple = (),
+    packs: tuple = (),
     gpack=None,
     kernel: bool = False,
-    col_base: int | None = None,
-    global_sentinel: int | None = None,
+    col_off: int = 0,
 ) -> torch.Tensor:
-    """SELL-tier contribution: (block_rows, 8) row-major.
+    """SELL-tier contribution: (block_rows, 8) row-major, in vpad's dtype.
 
-    The groups' rows are stacked in group order, cap * 128 rows each, and
-    a zero row last. A windowed group (one with a pack, sell_pack[g]) goes
-    through `sell_window`; the others are read from the tier's gathered
-    pack `gpack` (ops/cuda/sell_gather_kernel.py) by `sell_gather`, which
-    writes their rows and the zero row in place, with one pass over all of
-    them. Without a pack a group gathers each slot's v segment from a (cw,
-    ncu + 1) table whose last column is zero (the padding slots' column),
-    then sums over (window scalar, k). The rows are then placed by the
-    out_gather row map (rows with no slots read the zero row).
+    The tier's groups' rows are stacked in group order, chunks[g] * 128
+    rows each, and a zero row last. A windowed group (one with a pack,
+    packs[g]) goes through `sell_window`; the others are read from the
+    tier's gathered pack `gpack` (ops/cuda/sell_gather_kernel.py) by
+    `sell_gather`, which writes their rows and the zero row in place, with
+    one pass over all of them. The rows are then placed by the out_gather
+    row map (rows with no slots read the zero row).
 
-    col_base/global_sentinel: the multi-device halo mode. The plan's bcol
-    are global block columns while vpad is a shard's window starting at
-    block column col_base; the plan's padding column global_sentinel maps
-    to the zero column. Groups then gather per slot from their slabs, as in
-    the JAX package, whose halo mode never takes the windowed kernel; a
-    gpack is refused there.
+    col_off: the column of the whole vector at which vpad starts, for the
+    gathered pack's global columns (the multi-device halo mode, whose
+    plans have no windowed group); v reads 0 outside vpad.
     """
-    cdt = torch.promote_types(sell_dense[0].dtype, torch.float32)
-    cw = sell_dense[0].shape[0]
-    n = nbc * BLOCK_WIDTH
-    ncu = cdiv(n, cw)                   # column units of cw scalars
-    if col_base is not None and gpack is not None:
-        raise ValueError("sell_apply: the halo mode (col_base) reads the "
-                         "slabs, not a gathered pack")
-    caps = [d.shape[1] * d.shape[4] for d in sell_dense]
-    rows_total = sum(caps)
-    u_rows = torch.empty((rows_total + 1, BLOCK_HEIGHT), dtype=cdt,
+    n = vpad.shape[0]
+    rows_total = sum(chunks) * SELL_C
+    u_rows = torch.empty((rows_total + 1, BLOCK_HEIGHT), dtype=vpad.dtype,
                          device=vpad.device)
     if gpack is not None:
         gather = sell_gather if kernel else sell_gather_plain
-        gather(gpack, vpad, n, u_rows.view(-1))
+        gather(gpack, vpad, n, u_rows.view(-1), col_off)
     else:
         u_rows[rows_total:] = 0
-    vtab = None
     base = 0
-    for g, (dense_g, bcol_g) in enumerate(zip(sell_dense, sell_bcol)):
-        cw_g, ch, kg, _, lanes = dense_g.shape
-        rows = slice(base, base + ch * lanes)
-        base += ch * lanes
-        if (col_base is None and g < len(sell_pack)
-                and sell_pack[g] is not None):
+    for g, ch in enumerate(chunks):
+        if g < len(packs) and packs[g] is not None:
             win = sell_window if kernel else sell_window_plain
-            contrib = win(sell_pack[g], vpad, n)
-        elif gpack is not None:
-            continue
-        else:
-            if vtab is None:
-                vflat = torch.zeros((ncu + 1) * cw, dtype=cdt,
-                                    device=vpad.device)
-                vflat[:n] = vpad[:n]
-                vtab = vflat.reshape(ncu + 1, cw).T              # (cw, ncu+1)
-            idx = bcol_g.long()
-            if col_base is not None:
-                idx = torch.where(idx == global_sentinel, ncu,
-                                  idx - col_base).clamp(0, ncu)
-            vseg = vtab[:, idx].reshape(cw_g, ch, kg, 1, lanes)
-            contrib = (dense_g.to(cdt) * vseg).sum(dim=(0, 2))   # (ch, 8, 128)
-        u_rows[rows] = contrib.transpose(1, 2).reshape(-1, BLOCK_HEIGHT)
+            u_rows[base:base + ch * SELL_C] = win(packs[g], vpad, n).transpose(
+                1, 2).reshape(-1, BLOCK_HEIGHT)
+        base += ch * SELL_C
     return u_rows[out_gather.long().clamp(max=rows_total)]
 
 
@@ -254,8 +217,6 @@ def spmv(m, v: torch.Tensor, impl: str | None = None) -> torch.Tensor:
       impl: "auto" | "cuda" | "plain" | None (config default); see the
         module docstring.
     """
-    from .plan import Prepared, prepare_cached
-
     if m.transposed:
         raise ValueError("SpMV expects an untransposed (row-major) matrix")
     if v.dim() != 1 or v.shape[0] != m.num_cols:

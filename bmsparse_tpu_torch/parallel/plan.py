@@ -5,11 +5,13 @@ The single-device plan (ops/plan.py) makes static per-matrix choices:
 which diagonals, which SELL K-groups. `prepare_sharded` unifies them
 across shards — the union of DIA offsets (by shard vote) and of SELL
 K-groups, each padded to the largest chunk count any shard needs — and
-stacks the per-shard plan arrays on a leading shard axis. Shards that lack
-a diagonal carry a zero strip; groups a shard does not fill carry identity
-padding (zero tiles, sentinel columns). The JAX package needs one program
-for every shard; the port keeps the unified statics all the same, so that
-the stacked arrays equal JAX's and every rank's tensors have one shape.
+stacks the per-shard DIA strips and row maps on a leading shard axis.
+Shards that lack a diagonal carry a zero strip; groups a shard does not
+fill carry padding chunks (rows without entries). The JAX package needs
+one program for every shard; the port keeps the unified statics all the
+same, so that the stacked arrays equal JAX's. Each shard's SELL tier is
+its own GatherPack (ops/cuda/sell_gather_kernel.py), since the shards'
+entry counts differ; forced layouts have no windowed group.
 
 Coordinates: rows are shard-local (shard s owns global block rows
 [s*bpr, (s+1)*bpr)); columns stay global, and the DIA offsets are global
@@ -35,10 +37,11 @@ class ShardedPrepared:
     # DIA tier: (D, nd, r_loc, 128); offsets are global diagonals
     dia: torch.Tensor | None = None
     dia_offsets: tuple = ()
-    # SELL tier: per group (D, 8, cap, K, 8, 128) / (D, cap*K*128)
-    sell_dense: tuple = ()
-    sell_bcol: tuple = ()
+    # SELL tier: group g has sell_chunks[g] chunks of depth sell_ks[g] on
+    # every shard; sell_gpack[s] holds shard s's nonzeros
     sell_ks: tuple = ()
+    sell_chunks: tuple = ()
+    sell_gpack: tuple = ()
     out_gather: torch.Tensor | None = None   # (D, nbr_loc) int32
     sell_rows: int = 0
     # Halo feasibility from the exact column dependencies: (halo_left,
@@ -93,14 +96,14 @@ def prepare_sharded(sm: ShardedBmSparse) -> ShardedPrepared:
     for s, lm in enumerate(locals_):
         p = plan(s, lm, None)
         counts_by_k: dict = {}
-        for kg, dg in zip(p.sell_ks, p.sell_dense):
-            counts_by_k[kg] = counts_by_k.get(kg, 0) + dg.shape[1]
+        for kg, ch in zip(p.sell_ks, p.sell_chunks):
+            counts_by_k[kg] = counts_by_k.get(kg, 0) + ch
         for k, c in counts_by_k.items():
             group_need[k] = max(group_need.get(k, 0), c)
     forced_groups = tuple(
         (k, group_need[k]) for k in sorted(group_need, reverse=True))
     plans = [plan(s, lm, forced_groups) for s, lm in enumerate(locals_)]
-    # forced layouts gather every group (sell_apply's col_base path)
+    # forced layouts gather every group
     assert not any(pk is not None for p in plans for pk in p.sell_pack)
 
     dev = sm.device
@@ -109,16 +112,15 @@ def prepare_sharded(sm: ShardedBmSparse) -> ShardedPrepared:
         return torch.stack([get(p) for p in plans]).to(dev)
 
     dia = stack(lambda p: p.dia) if forced_dia else None
-    sell_dense = tuple(stack(lambda p, g=g: p.sell_dense[g])
-                       for g in range(len(forced_groups)))
-    sell_bcol = tuple(stack(lambda p, g=g: p.sell_bcol[g])
-                      for g in range(len(forced_groups)))
     out_gather = (stack(lambda p: p.out_gather) if forced_groups
                   else torch.zeros((d, bpr), dtype=torch.int32, device=dev))
     return ShardedPrepared(
         sm=sm, dia=dia, dia_offsets=forced_dia,
-        sell_dense=sell_dense, sell_bcol=sell_bcol,
-        sell_ks=tuple(k for k, _ in forced_groups), out_gather=out_gather,
+        sell_ks=tuple(k for k, _ in forced_groups),
+        sell_chunks=tuple(c for _, c in forced_groups),
+        sell_gpack=tuple(p.sell_gpack.to(dev) for p in plans)
+        if forced_groups else (),
+        out_gather=out_gather,
         sell_rows=plans[0].sell_rows if plans else 0,
         halo=_halo(sm, locals_, forced_dia))
 

@@ -11,9 +11,9 @@ package's sharded output reads.
 
 Per rank: sharded_spmv runs the raw-container SpMV (ops/spmv.py::
 _spmv_xla); sharded_spmv_prepared runs the tiered plan, with the DIA tier
-on csrc/dia_spmv.cu at the rank's column shift and the SELL tier's per-
-slot gather (halo mode never takes the windowed kernel, as in the JAX
-package).
+on csrc/dia_spmv.cu at the rank's column shift and the SELL tier on
+csrc/sell_gather.cu over the rank's pack at its column offset (the
+sharded plans have no windowed group, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..config import BLOCK_HEIGHT, BLOCK_WIDTH, get_config, round_up
-from ..format.bmsparse import BmSparse, cdiv
+from ..format.bmsparse import BmSparse
 from ..ops import spmv as _spmv
 from .mesh import Mesh
 from .partition import ShardedBmSparse
@@ -79,18 +79,15 @@ def _resolve_exchange(sp, exchange: str) -> str:
 
 def shard_geometry(sp, s: int, n: int, exchange: str) -> tuple:
     """Where shard s's window of n entries sits in v: (dia_shift,
-    col_base, global_sentinel) for dia_apply and sell_apply (col_base and
-    the sentinel None for the whole v)."""
-    sm = sp.sm
-    npad_loc = sm.rows_per_shard * BLOCK_HEIGHT
+    col_off) for dia_apply and sell_apply, col_off the column of v at
+    which the window starts (0 for the whole v)."""
+    npad_loc = sp.sm.rows_per_shard * BLOCK_HEIGHT
     if exchange == "halo":
         hl, hr = sp.halo
         chunk = n - hl - hr
-        return (s * (npad_loc - chunk) + hl,
-                s * (chunk // BLOCK_WIDTH) - hl // BLOCK_WIDTH,
-                cdiv(sm.num_cols, BLOCK_WIDTH))
+        return s * (npad_loc - chunk) + hl, s * chunk - hl
     # tall matrices: late shards' shifts pass the end of v (read zero)
-    return s * npad_loc, None, None
+    return s * npad_loc, 0
 
 
 def local_spmv_prepared(sp, s: int, vpad: torch.Tensor, exchange: str,
@@ -99,20 +96,18 @@ def local_spmv_prepared(sp, s: int, vpad: torch.Tensor, exchange: str,
     compute dtype) from the v window its exchange delivered: the halo
     window [left halo ; own slice ; right halo], or the whole padded v.
     The DIA tier reads vpad at the shard's column shift, the SELL tier
-    gathers per slot, from block column col_base in halo mode."""
+    reads the shard's pack at the window's column offset."""
     npad_loc = sp.sm.rows_per_shard * BLOCK_HEIGHT
-    dia_shift, col_base, sentinel = shard_geometry(
-        sp, s, vpad.shape[0], exchange)
+    dia_shift, col_off = shard_geometry(sp, s, vpad.shape[0], exchange)
     u = torch.zeros(npad_loc, dtype=vpad.dtype, device=vpad.device)
     if sp.dia_offsets:
         u += _spmv.dia_apply(sp.dia[s], sp.dia_offsets, vpad, kernel=kernels,
                              col_shift=dia_shift).reshape(-1)[:npad_loc]
     if sp.sell_ks:
         u += _spmv.sell_apply(
-            tuple(x[s] for x in sp.sell_dense),
-            tuple(x[s] for x in sp.sell_bcol), sp.out_gather[s], vpad,
-            vpad.shape[0] // BLOCK_WIDTH, col_base=col_base,
-            global_sentinel=sentinel).reshape(npad_loc)
+            sp.sell_chunks, sp.out_gather[s], vpad,
+            gpack=sp.sell_gpack[s], kernel=kernels,
+            col_off=col_off).reshape(npad_loc)
     return u
 
 

@@ -125,18 +125,19 @@ def windowed_csr(torch, p, n):
     """The windowed SELL groups of plan p as one CSR matrix on the card
     (int32 indices), the groups' output rows stacked in group order, and
     the number of nonzeros: what one torch.sparse_csr_tensor matvec needs
-    to compute sell_window's outputs. Built from the slabs, which plans
-    with and without packs both hold."""
+    to compute sell_window's outputs. Read from the groups' packs."""
+    from bmsparse_tpu_torch.ops.cuda.sell_kernel import pack_entries
+
     rows, cols, vals = [], [], []
     base = 0
-    for d, rel, ws in zip(p.sell_dense, p.sell_rel, p.sell_ws):
-        if rel is None:
+    for pk in p.sell_pack:
+        if pk is None:
             continue
-        w, c, k, i, lane = torch.nonzero(d, as_tuple=True)
-        rows.append(base + (c * 8 + i) * 128 + lane)
-        cols.append((ws.long()[c] + rel.long()[c, k, lane]) * d.shape[0] + w)
-        vals.append(d[w, c, k, i, lane].float())
-        base += d.shape[1] * 8 * 128
+        r, c, x = pack_entries(pk)
+        rows.append(base + r)
+        cols.append(c)
+        vals.append(x.float())
+        base += pk.cap * 8 * 128
     rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
     order = torch.argsort(rows * n + cols)
     crow = torch.zeros(base + 1, dtype=torch.int64, device=rows.device)
@@ -529,11 +530,12 @@ def phase2_main_path(torch):
                   "sell_gather": sell_gather.launches}
         for k in launches:
             launches[k] += counts[k]
-        nwin = sum(r is not None for r in p.sell_rel)
-        cw = p.sell_dense[0].shape[0] if p.sell_dense else 0
+        nwin = sum(pk is not None for pk in p.sell_pack)
+        cw = sorted({pk.cw for pk in p.sell_pack if pk is not None})
         print(f"phase2 {name}: n={m.num_rows} nnz={m.nnz} blocks={m.nb} "
               f"load={t1 - t0:.3f}s prepare={t2 - t1:.3f}s "
-              f"ndiags={len(p.dia_offsets)} sell_ks={p.sell_ks} cw={cw} "
+              f"ndiags={len(p.dia_offsets)} sell_ks={p.sell_ks} "
+              f"sell_chunks={p.sell_chunks} windowed cw={cw} "
               f"windowed_groups={nwin}/{len(p.sell_ks)} ovf_ks={p.ovf_ks} "
               f"launches={counts}")
         want = sum(gather_launches(pk) for _, pk, _ in gathered(p))
@@ -568,9 +570,10 @@ def phase2_main_path(torch):
 
 
 def pack_check(torch, p, v, what, kernel, plain) -> float:
-    """Each windowed group's pack of plan p: its size against the slab's,
-    and the kernel against its plain twin on it. Returns the largest
-    max_abs_err."""
+    """Each windowed group's pack of plan p: its size against the dense
+    slab of its shape (cw, chunks, K, 8, 128) that the JAX package's plan
+    holds, and the kernel against its plain twin on it. Returns the
+    largest max_abs_err."""
     n = p.block_cols * 8
     vpad = torch.zeros(n, device=v.device)
     vpad[: v.shape[0]] = v
@@ -578,27 +581,28 @@ def pack_check(torch, p, v, what, kernel, plain) -> float:
     for g, pk in enumerate(p.sell_pack):
         if pk is None:
             continue
-        d = p.sell_dense[g]
+        shape = (pk.cw, pk.cap, p.sell_ks[g], 8, 128)
+        slab = math.prod(shape) * pk.vals.element_size()
         got, want = kernel(pk, vpad, n), plain(pk, vpad, n)
         if v.is_cuda:
             torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **TOL)
         err = max(err, max_abs(got, want))
-        print(f"phase2 {what} sell_window group {g} {tuple(d.shape)}: "
+        print(f"phase2 {what} sell_window group {g} {shape}: "
               f"{pk.nnz} nonzeros, {pk.vals.numel()} pack entries "
               f"({pk.vals.numel() / max(pk.nnz, 1)!r} per nonzero), pack "
-              f"{pk.nbytes()} bytes against {nbytes(d)} of slab; kernel vs "
+              f"{pk.nbytes()} bytes against {slab} of slab; kernel vs "
               f"plain max_abs_err={max_abs(got, want)!r}")
     return err
 
 
 def gathered(p) -> list:
-    """(tier, pack, slabs) of each SELL tier of plan p that has a gathered
-    pack: the main tier's sell_gpack, then the overflow tier's ovf_gpack,
-    as one spmv calls them."""
-    return [(tier, pk, dense) for tier, pk, dense in (
-        ("SELL", p.sell_gpack, p.sell_dense),
-        ("overflow", p.ovf_gpack, p.ovf_dense)) if pk is not None]
+    """(tier, pack, stacked rows) of each SELL tier of plan p that has a
+    gathered pack: the main tier's sell_gpack, then the overflow tier's
+    ovf_gpack, as one spmv calls them."""
+    return [(tier, pk, rows) for tier, pk, rows in (
+        ("SELL", p.sell_gpack, p.sell_rows),
+        ("overflow", p.ovf_gpack, p.ovf_rows)) if pk is not None]
 
 
 def gather_launches(pk) -> int:
@@ -607,12 +611,11 @@ def gather_launches(pk) -> int:
     return int(pk.seg_off.shape[0] > 1) + int(pk.rows.shape[0] > 0)
 
 
-def gather_out(torch, dense):
-    """A zeroed stacked output of a SELL tier whose slabs are `dense`
-    (sell_apply's u_rows, flat): each group's cap * 128 rows and the zero
-    row, 8 scalars each."""
-    rows = sum(d.shape[1] * d.shape[4] for d in dense) + 1
-    return torch.zeros(rows * 8, device=dense[0].device)
+def gather_out(torch, rows_total, device):
+    """A zeroed stacked output of a SELL tier of rows_total stacked rows
+    (sell_apply's u_rows, flat): its rows and the zero row, 8 scalars
+    each."""
+    return torch.zeros((rows_total + 1) * 8, device=device)
 
 
 def gather_gap(torch, pk, vpad, n, got_rows) -> float:
@@ -639,10 +642,12 @@ def gather_gap(torch, pk, vpad, n, got_rows) -> float:
 
 
 def gather_check(torch, p, v, what, close=TOL) -> float:
-    """Each gathered pack of plan p: its size against its tier's slabs,
-    two kernel calls for the same bits, sell_gather and sell_gather_plain
-    each within GATHER_REL of the float64 sums and, where `close` is
-    given, the kernel against the plain version elementwise. Returns the
+    """Each gathered pack of plan p: two kernel calls for the same bits,
+    sell_gather and sell_gather_plain each within GATHER_REL of the
+    float64 sums and, where `close` is given, the kernel against the
+    plain version elementwise; and the kernel on a window of v from a
+    column offset (the multi-device halo mode) bitwise equal to it on
+    the whole v with the columns before the window zeroed. Returns the
     largest max_abs_err of kernel against plain."""
     from bmsparse_tpu_torch.ops.cuda.sell_gather_kernel import (
         sell_gather, sell_gather_plain,
@@ -652,11 +657,22 @@ def gather_check(torch, p, v, what, close=TOL) -> float:
     vpad = torch.zeros(n, device=v.device)
     vpad[: v.shape[0]] = v
     err = 0.0
-    for tier, pk, dense in gathered(p):
-        got = sell_gather(pk, vpad, n, gather_out(torch, dense))
-        again = sell_gather(pk, vpad, n, gather_out(torch, dense))
-        want = sell_gather_plain(pk, vpad, n, gather_out(torch, dense))
+    off = n // 2 // 8 * 8
+    cut = vpad.clone()
+    cut[:off] = 0
+    for tier, pk, rows_total in gathered(p):
+        def out():
+            return gather_out(torch, rows_total, vpad.device)
+
+        got = sell_gather(pk, vpad, n, out())
+        again = sell_gather(pk, vpad, n, out())
+        want = sell_gather_plain(pk, vpad, n, out())
+        shifted = sell_gather(pk, vpad[off:], n - off, out(), off)
+        masked = sell_gather(pk, cut, n, out())
         torch.cuda.synchronize()
+        check(torch.equal(shifted, masked),
+              f"{what}: sell_gather at column offset {off} differs from "
+              f"the whole v with the columns before it zeroed")
         check(torch.equal(got, again),
               f"{what}: two sell_gather calls differ in their bits")
         rows = pk.rows.long()
@@ -669,11 +685,11 @@ def gather_check(torch, p, v, what, close=TOL) -> float:
         err = max(err, max_abs(got, want))
         print(f"phase2 {what} sell_gather {tier} tier: {pk.nnz} nonzeros, "
               f"{pk.seg_off.shape[0] - 1} segments, {pk.rows.shape[0]} rows;"
-              f" pack {nbytes(*(getattr(pk, f) for f in pk.TENSORS))} bytes "
-              f"against {nbytes(*dense)} of slab (all the tier's groups); "
-              f"kernel vs plain max_abs_err={max_abs(got, want)!r}; gap to "
+              f" pack {nbytes(*(getattr(pk, f) for f in pk.TENSORS))} bytes;"
+              f" kernel vs plain max_abs_err={max_abs(got, want)!r}; gap to "
               f"the float64 sums, |u - ref| / (|A| |v|): kernel "
-              f"{gaps[0]!r}, plain {gaps[1]!r}; two calls bitwise equal")
+              f"{gaps[0]!r}, plain {gaps[1]!r}; two calls bitwise equal; "
+              f"column offset {off} bitwise equal to the zeroed columns")
     return err
 
 
@@ -684,10 +700,7 @@ def gather_csr(torch, packs, n):
     dev = packs[0].vals.device
     crow, cols, vals = [torch.zeros(1, dtype=torch.int64, device=dev)], [], []
     for pk in packs:
-        seg_rows = torch.repeat_interleave(
-            torch.arange(pk.rows.shape[0], device=dev), torch.diff(pk.row_seg))
-        cnt = torch.zeros(pk.rows.shape[0], dtype=torch.int64, device=dev)
-        cnt.index_add_(0, seg_rows, torch.diff(pk.seg_off))
+        cnt = torch.bincount(pk.entry_rows(), minlength=pk.rows.shape[0])
         crow.append(crow[-1][-1:] + torch.cumsum(cnt, 0))
         cols.append(pk.cols[:pk.nnz])
         vals.append(pk.vals[:pk.nnz].float())
@@ -1609,7 +1622,7 @@ def phase3_times(torch, runs, card):
     n = m.block_cols * 8
     vpad = torch.zeros(n, device="cuda")
     vpad[: v.shape[0]] = v
-    windowed = [(d, pk) for d, pk in zip(p.sell_dense, p.sell_pack)
+    windowed = [(g, pk) for g, pk in enumerate(p.sell_pack)
                 if pk is not None]
     packs = [pk for _, pk in windowed]
 
@@ -1632,12 +1645,11 @@ def phase3_times(torch, runs, card):
     # (utils/roofline.py's SpMV rule); one FMA per nonzero
     bnd = bound(nnz * packs[0].vals.element_size() + out_rows * 4, 2 * nnz)
     entries = sum(pk.vals.numel() for pk in packs)
-    print(f"phase3 sell_window road1M windowed groups "
-          f"{[tuple(d.shape) for d, _ in windowed]}: {nnz} nonzeros, "
-          f"{out_rows} output rows; packs {entries} entries "
+    print(f"phase3 sell_window road1M windowed groups (cw, chunks, K) "
+          f"{[(pk.cw, pk.cap, p.sell_ks[g]) for g, pk in windowed]}: {nnz} "
+          f"nonzeros, {out_rows} output rows; packs {entries} entries "
           f"({entries / nnz!r} per nonzero), "
-          f"{sum(pk.nbytes() for pk in packs)} bytes; slabs "
-          f"{sum(nbytes(d) for d, _ in windowed)} bytes [{card}]")
+          f"{sum(pk.nbytes() for pk in packs)} bytes [{card}]")
     print(f"phase3 sell_window road1M L2-cold device ms (events behind a "
           f"queued spin, {FLUSH_BYTES} bytes written before each run): "
           f"kernel {t_k!r}, plain {t_p!r}, torch.sparse_csr_tensor @ v "
@@ -1667,7 +1679,7 @@ def gather_times(torch, p, vpad, what, card) -> dict:
     n = vpad.shape[0]
     tiers = gathered(p)
     packs = [pk for _, pk, _ in tiers]
-    outs = [gather_out(torch, dense) for _, _, dense in tiers]
+    outs = [gather_out(torch, rows, vpad.device) for _, _, rows in tiers]
 
     def run(fn):
         return [fn(pk, vpad, n, o) for pk, o in zip(packs, outs)]

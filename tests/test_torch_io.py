@@ -122,14 +122,20 @@ def test_plan_roundtrip_block_tiers(tmp_path):
     assert p.dia is not None and p.sell_ks and p.ovf_ks
     u, u2, p2 = _spmv_pair(p, str(tmp_path / "plan.pt"), m)
     assert torch.equal(u, u2)
-    assert (p2.sell_ks, p2.ovf_ks, p2.dia_offsets, p2.plan_dtype) == (
-        p.sell_ks, p.ovf_ks, p.dia_offsets, p.plan_dtype)
+    for f in ("sell_ks", "sell_chunks", "ovf_ks", "ovf_chunks",
+              "dia_offsets", "plan_dtype"):
+        assert getattr(p2, f) == getattr(p, f), f
     for f in ("dia", "out_gather", "ovf_gather"):
         assert torch.equal(getattr(p2, f), getattr(p, f)), f
-    for f in ("sell_dense", "sell_bcol", "sell_ws", "sell_rel",
-              "ovf_dense", "ovf_bcol"):
-        for a, b in zip(getattr(p2, f), getattr(p, f)):
-            assert (a is None and b is None) or torch.equal(a, b), f
+    packs = [(f"sell_pack[{g}]", a, b)
+             for g, (a, b) in enumerate(zip(p2.sell_pack, p.sell_pack))]
+    packs += [(f, getattr(p2, f), getattr(p, f))
+              for f in ("sell_gpack", "ovf_gpack")]
+    assert len(p2.sell_pack) == len(p.sell_pack)
+    for f, a, b in packs:
+        assert (a is None) == (b is None), f
+        for k in () if a is None else a.TENSORS:
+            assert torch.equal(getattr(a, k), getattr(b, k)), (f, k)
 
 
 def test_plan_roundtrip_stream_tier(tmp_path):
@@ -154,7 +160,9 @@ def test_plan_roundtrip_bf16(tmp_path):
     u, u2, p2 = _spmv_pair(p, str(tmp_path / "plan.pt"), m)
     assert torch.equal(u, u2)
     assert p2.plan_dtype == "bfloat16" and p2.dense_flat_ is None
-    assert p2.sell_dense[0].dtype == torch.bfloat16
+    assert p2.sell_gpack.vals.dtype == torch.bfloat16
+    assert all(pk.vals.dtype == torch.bfloat16 for pk in p2.sell_pack
+               if pk is not None)
 
 
 def test_load_rejects_stale_layout(tmp_path, monkeypatch):
@@ -162,8 +170,8 @@ def test_load_rejects_stale_layout(tmp_path, monkeypatch):
     m = bt.coo_to_bmsparse(rows, cols, vals, (256, 256), device="cpu")
     path = str(tmp_path / "plan.pt")
     bin_t.save_prepared(path, plan_t.prepare(m))
-    assert plan_t.PLAN_LAYOUT_VERSION == 12
-    monkeypatch.setattr(plan_t, "PLAN_LAYOUT_VERSION", 13)
+    assert plan_t.PLAN_LAYOUT_VERSION == 13
+    monkeypatch.setattr(plan_t, "PLAN_LAYOUT_VERSION", 14)
     assert bin_t.load_prepared(path, m) is None
     with pytest.raises(TypeError, match="Prepared"):
         bin_t.save_prepared(path, m)
@@ -194,10 +202,22 @@ def test_load_refuses_layout_11_dump(tmp_path, monkeypatch):
     assert bin_t.load_prepared(path, m) is None
 
 
+def test_load_refuses_layout_12_dump(tmp_path, monkeypatch):
+    """A dump stamped with layout 12 (plans that carry the slabs) loads
+    as None, so such a plan is rebuilt without them."""
+    m = bt.coo_to_bmsparse(*tm.roadnet(65536, seed=8), device="cpu")
+    path = str(tmp_path / "plan.pt")
+    with monkeypatch.context() as mp:
+        mp.setattr(plan_t, "PLAN_LAYOUT_VERSION", 12)
+        bin_t.save_prepared(path, plan_t.prepare(m, stream="off"))
+        assert bin_t.load_prepared(path, m) is not None
+    assert bin_t.load_prepared(path, m) is None
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plan_roundtrip_gathered_packs(tmp_path, dtype):
     """Both tiers' gathered packs (sell_gpack, ovf_gpack) come back field
-    for field under layout 12, and the loaded plan's SpMV is bitwise
+    for field under layout 13, and the loaded plan's SpMV is bitwise
     equal."""
     m = bt.coo_to_bmsparse(*tm.roadnet(65536, seed=8), device="cpu")
     p = plan_t.prepare(m, dtype=getattr(torch, dtype), stream="off")

@@ -338,6 +338,35 @@ def test_sell_gather_plain_sums_rows():
     assert pack.vals.numel() % 4 == 0 and pack.vals.numel() - pack.nnz < 4
 
 
+def _window(v, col_off, n):
+    """v's entries [col_off, col_off + n), zero outside v."""
+    w = torch.zeros(n, dtype=v.dtype, device=v.device)
+    lo, hi = max(col_off, 0), min(col_off + n, v.shape[0])
+    if hi > lo:
+        w[lo - col_off:hi - col_off] = v[lo:hi]
+    return w
+
+
+@pytest.mark.parametrize("col_off", [0, 1000, -64])
+def test_sell_gather_col_off_reads_a_window(col_off):
+    """With col_off, v is the window of the whole vector from column
+    col_off: entry e reads v[cols[e] - col_off], zero outside [0, n),
+    the same sums as the whole vector zeroed outside the window."""
+    pack, v, n, nout = _gather_inputs()
+    m = 3000
+    win = _window(_window(v, 0, n), col_off, m)
+    masked = torch.zeros(n + m + 1000)
+    masked[:n] = v[:n]
+    keep = torch.zeros_like(masked, dtype=torch.bool)
+    keep[max(col_off, 0):max(col_off + m, 0)] = True
+    masked = torch.where(keep, masked, 0.0)
+    got = sell_gather(pack, win, m, torch.full((nout,), float("nan")),
+                      col_off)
+    want = sell_gather(pack, masked, masked.shape[0],
+                       torch.full((nout,), float("nan")))
+    torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+
+
 def test_sell_gather_rejects_what_the_kernel_does_not_take():
     pack, v, n, nout = _gather_inputs()
     out = torch.zeros(nout)
@@ -499,6 +528,22 @@ def test_sell_gather_kernel_on_card(cuda, dtype):
     torch.cuda.synchronize()
     assert sell_gather.launches == before + 2
     _assert_gap(out, *_gather_ref(pack, v, n, nout))
+
+
+@pytest.mark.gpu
+def test_sell_gather_kernel_col_off_on_card(cuda):
+    """The halo mode's column offset: the kernel against its plain twin
+    on a window of v, offsets on either side of 0."""
+    pack, v, n, nout = _gather_inputs()
+    pack = pack.to(cuda)
+    for col_off in (1000, -64):
+        win = _window(v, col_off, 3000).to(cuda)
+        got = sell_gather(pack, win, 3000, torch.full(
+            (nout,), float("nan"), device=cuda), col_off)
+        want = sell_gather_plain(pack, win, 3000, torch.full(
+            (nout,), float("nan"), device=cuda), col_off)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, equal_nan=True, **TOL)
 
 
 @pytest.mark.gpu

@@ -42,6 +42,7 @@ from bmsparse_tpu.parallel.spmv import (
 )
 
 import bmsparse_tpu_torch as bt
+from bmsparse_tpu_torch.interop import pack_from_slabs, tensor_from_numpy
 from bmsparse_tpu_torch.parallel import launch
 from bmsparse_tpu_torch.parallel.mesh import make_mesh
 from bmsparse_tpu_torch.parallel.partition import ShardedBmSparse, partition
@@ -167,6 +168,10 @@ def _eq(want, got, name, words=False):
     np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+def _host_tensor(x):
+    return tensor_from_numpy(np.asarray(x))
+
+
 def _same_coo(want, got):
     for x, y, what in zip(want, got, ("rows", "cols", "values")):
         if what == "values":
@@ -220,11 +225,17 @@ def test_prepare_sharded_matches_jax(name, d):
     else:
         _eq(pj.dia, pt.dia, "dia")
     _eq(pj.out_gather, pt.out_gather, "out_gather")
-    assert len(pt.sell_dense) == len(pj.sell_dense)
-    for g, (x, y) in enumerate(zip(pj.sell_dense, pt.sell_dense)):
-        _eq(x, y, f"sell_dense[{g}]")
-    for g, (x, y) in enumerate(zip(pj.sell_bcol, pt.sell_bcol)):
-        _eq(x, y, f"sell_bcol[{g}]")
+    # each shard's pack holds the nonzeros of the JAX shard's slabs
+    assert pt.sell_chunks == tuple(x.shape[2] for x in pj.sell_dense)
+    assert len(pt.sell_gpack) == (d if pt.sell_ks else 0)
+    for s, gk in enumerate(pt.sell_gpack):
+        want = pack_from_slabs(
+            [_host_tensor(x[s]) for x in pj.sell_dense],
+            [_host_tensor(x[s]) for x in pj.sell_bcol],
+            range(len(pt.sell_ks)), pt.sell_rows)
+        assert gk.nnz == want.nnz
+        for f in gk.TENSORS:
+            _eq(getattr(want, f), getattr(gk, f), f"sell_gpack[{s}].{f}")
     if name == "band":
         assert pt.halo is not None
     if name == "tall":

@@ -1,7 +1,9 @@
 """Parity of the PyTorch port's execution plan with the JAX package's:
-prepare(m, stream="off") must build the same arrays, bit for bit, in
-float32 and bfloat16, on structures that exercise every block tier (the
-stream tier's plans: tests/test_torch_stream.py)."""
+prepare(m, stream="off") must build the plan that the JAX package's
+plan carries across to (interop.prepared_from_numpy, which cuts the
+packs from the JAX slabs), bit for bit, in float32 and bfloat16, on
+structures that exercise every block tier (the stream tier's plans:
+tests/test_torch_stream.py)."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,8 @@ from bmsparse_tpu.ops.plan import prepare as prepare_j
 from bmsparse_tpu.utils import testmats as tm_j
 
 import bmsparse_tpu_torch as bt
+from bmsparse_tpu_torch.interop import prepared_from_numpy
+from bmsparse_tpu_torch.ops.plan import Prepared
 from bmsparse_tpu_torch.ops.plan import cast_prepared as cast_t
 from bmsparse_tpu_torch.ops.plan import prepare as prepare_t
 from bmsparse_tpu_torch.utils import testmats as tm_t
@@ -25,10 +29,14 @@ from conftest import random_coo
 from test_pallas_sell import _clustered_coo, _road_like_coo
 
 PLAN_TENSORS = ("dia", "out_gather", "ovf_gather")
+# the JAX plan's per-group arrays: its slabs, which the port keeps as packs
 PLAN_GROUPS = ("sell_dense", "sell_bcol", "sell_ws", "sell_rel",
                "ovf_dense", "ovf_bcol")
 PLAN_STATICS = ("plan_dtype", "dia_offsets", "sell_ks", "sell_rows",
                 "ovf_ks", "ovf_rows")
+# the port plan's own: chunk counts per group and the packs
+PORT_STATICS = PLAN_STATICS + ("sell_chunks", "ovf_chunks")
+PORT_PACKS = ("sell_gpack", "ovf_gpack")
 
 
 def jax_plan_arrays(p) -> dict:
@@ -55,14 +63,30 @@ def _bits(x):
     return x.view(np.int16) if x.dtype.name == "bfloat16" else x
 
 
+def _pack_pairs(name, x, y):
+    """(field, a, b) of two packs (SellPack or GatherPack) or Nones."""
+    assert (x is None) == (y is None), name
+    if x is None:
+        return []
+    for f in x.STATICS:
+        assert getattr(x, f) == getattr(y, f), f"{name}.{f}"
+    return [(f"{name}.{f}", getattr(x, f), getattr(y, f))
+            for f in x.TENSORS]
+
+
 def assert_same_plan(pj, pt):
-    for f in PLAN_STATICS:
+    """pt's plan arrays and packs equal pj's, bit for bit. pj: a JAX
+    plan, carried across onto pt's matrix first, or another port plan."""
+    if not isinstance(pj, Prepared):
+        pj = prepared_from_numpy(pt.m, jax_plan_arrays(pj), device="cpu")
+    for f in PORT_STATICS:
         assert getattr(pj, f) == getattr(pt, f), f
     pairs = [(f, getattr(pj, f), getattr(pt, f)) for f in PLAN_TENSORS]
-    for f in PLAN_GROUPS:
-        a, b = getattr(pj, f), getattr(pt, f)
-        assert len(a) == len(b), f
-        pairs += [(f"{f}[{g}]", x, y) for g, (x, y) in enumerate(zip(a, b))]
+    assert len(pj.sell_pack) == len(pt.sell_pack)
+    for g, (x, y) in enumerate(zip(pj.sell_pack, pt.sell_pack)):
+        pairs += _pack_pairs(f"sell_pack[{g}]", x, y)
+    for f in PORT_PACKS:
+        pairs += _pack_pairs(f, getattr(pj, f), getattr(pt, f))
     for name, x, y in pairs:
         x, y = _bits(x), _bits(y)
         if x is None or y is None:
@@ -87,6 +111,25 @@ def _square(gen, n):
     return (*gen, (n, n))
 
 
+def _depth_one(n=32768, per_row=3, seed=4):
+    """Each row's entries in its own 64-column window, off the dense
+    diagonals: one 64-column super-slot per block row, so these rows form
+    depth-1 groups with a window plan in float32, which bfloat16 plans
+    refuse to depth-1 groups. Every 300th row has one more entry 4,096
+    columns on: these rows share chunks spread over the whole matrix, a
+    group without a window."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), per_row)
+    cols = rows // 64 * 64 + rng.integers(0, 64, rows.shape[0])
+    far = np.arange(0, n, 300)
+    rows = np.r_[rows, far]
+    cols = np.r_[cols, (far // 64 * 64 + 4096) % n]
+    key = np.unique(rows * n + cols)
+    rows, cols = np.divmod(key, n)
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return rows.astype(np.int32), cols.astype(np.int32), vals, (n, n)
+
+
 # name -> (triplets, what the float32 plan must show)
 CASES = {
     "stencil": (lambda: _square(make_stencil(
@@ -102,6 +145,7 @@ CASES = {
     "roadnet": (lambda: tm_t.roadnet(8192, seed=8),
                 dict(dia=True, windows=True)),
     "fem2d": (lambda: tm_t.fem2d(64, seed=7), dict(dia=True)),
+    "depth_one": (_depth_one, dict(cw=64, windows=True)),
 }
 
 
@@ -111,15 +155,19 @@ def _matrices(name):
             bt.coo_to_bmsparse(r, c, v, shape, device="cpu"))
 
 
-def _check_features(p, want):
+def _check_features(p, pj, want):
+    """p: the port's plan, equal to the JAX plan pj (whose slabs give the
+    slot width cw)."""
     if "dia" in want:
         assert (p.dia is not None) == want["dia"]
     if "sell" in want:
         assert bool(p.sell_ks) == want["sell"]
     if "cw" in want:
-        assert p.sell_dense[0].shape[0] == want["cw"]
+        assert pj.sell_dense[0].shape[0] == want["cw"]
+        assert all(pk.cw == want["cw"] for pk in p.sell_pack
+                   if pk is not None)
     if "windows" in want:
-        assert any(r is not None for r in p.sell_rel) == want["windows"]
+        assert any(pk is not None for pk in p.sell_pack) == want["windows"]
     if "overflow" in want:
         assert bool(p.ovf_ks) == want["overflow"]
 
@@ -141,7 +189,7 @@ def test_prepare_matches_jax(name, dtype):
     pt = prepare_t(mt, dtype=getattr(torch, dtype), stream="off")
     assert_same_plan(pj, pt)
     if dtype == "float32":
-        _check_features(pt, CASES[name][1])
+        _check_features(pt, pj, CASES[name][1])
 
 
 @pytest.mark.parametrize("sell_unit", [8, 64])
@@ -150,26 +198,28 @@ def test_prepare_sell_unit_matches_jax(sell_unit):
     pj = prepare_j(mj, sell_unit=sell_unit, stream="off")
     pt = prepare_t(mt, sell_unit=sell_unit)
     assert_same_plan(pj, pt)
-    assert pt.sell_dense[0].shape[0] == sell_unit
+    assert pj.sell_dense[0].shape[0] == sell_unit
 
 
-@pytest.mark.parametrize("name", ["clustered", "roadnet"])
+@pytest.mark.parametrize("name", ["clustered", "roadnet", "depth_one"])
 def test_cast_prepared_matches_jax(name):
+    """depth_one's depth-1 groups lose their window under the cast: their
+    packs' entries join the tier's gathered pack."""
     mj, mt = _matrices(name)
     pj = cast_j(prepare_j(mj, stream="off"), jnp.bfloat16)
-    pt = cast_t(prepare_t(mt, stream="off"), torch.bfloat16)
+    p32 = prepare_t(mt, stream="off")
+    pt = cast_t(p32, torch.bfloat16)
+    lost = [a is not None and b is None
+            for a, b in zip(p32.sell_pack, pt.sell_pack)]
+    assert any(lost) == (name == "depth_one")
     assert_same_plan(pj, pt)
     # and the cast equals a bf16 build, the windowed groups' packs too
     pb = prepare_t(mt, dtype=torch.bfloat16)
     assert_same_plan(pt, pb)
     assert [pk is None for pk in pt.sell_pack] == [
-        rel is None for rel in pt.sell_rel]
-    for x, y in zip(pt.sell_pack, pb.sell_pack):
-        assert (x is None) == (y is None)
-        if x is not None:
-            assert x.vals.dtype == torch.bfloat16 and x.nnz == y.nnz
-            for f in x.TENSORS:
-                assert torch.equal(getattr(x, f), getattr(y, f)), f
+        rel is None for rel in pj.sell_rel]
+    assert all(pk.vals.dtype == torch.bfloat16 for pk in pt.sell_pack
+               if pk is not None)
 
 
 def test_prepare_ragusa16_and_empty(ragusa16):

@@ -10,8 +10,10 @@ on the CPU, against the JAX package on the same seeded inputs:
     lacks and forced padding groups);
   * `dia_apply` with `col_shift` (the plain twin) against JAX
     `dia_impl="pallas"` with `max_shift_rows` (interpret mode), including
-    shifts past the end of v, and `sell_apply`
-    with `col_base`, at rtol = atol = 1e-5;
+    shifts past the end of v, and `sell_apply` on a
+    shard's pack with a column offset against JAX's `col_base` over its
+    slabs and, far columns included, against JAX's `sell_apply` over v
+    zeroed outside the window, at rtol = atol = 1e-5;
   * under impl="auto" float64 takes the plain path on a CUDA device.
 """
 
@@ -179,9 +181,11 @@ def test_spgemm_xla_float64_and_empty():
 # ---------------------------------------------------------------------------
 # shard options of prepare, dia_apply and sell_apply
 # ---------------------------------------------------------------------------
-def _shard(n=2048, bpr=128, s=1, extra=True):
+def _shard(n=2048, bpr=128, s=1, extra=True, own_cols=False):
     """Shard s of a banded matrix with a few far entries: rows localized,
-    columns global, as parallel/plan.py builds it."""
+    columns global, as parallel/plan.py builds it. own_cols keeps only
+    the entries in the shard's own column slice, which every halo window
+    holds."""
     r, c, v = tm.make_banded(n, 5, seed=21)
     if extra:
         rng = np.random.default_rng(22)
@@ -193,6 +197,8 @@ def _shard(n=2048, bpr=128, s=1, extra=True):
         v = rng.standard_normal(len(r)).astype(np.float32)
     lo, hi = s * bpr * 8, (s + 1) * bpr * 8
     keep = (r >= lo) & (r < hi)
+    if own_cols:
+        keep &= (c >= lo) & (c < hi)
     r, c, v = r[keep] - lo, c[keep], v[keep]
     shape = (bpr * 8, n)
     return (bj.coo_to_bmsparse(r, c, v, shape, backend="host"),
@@ -212,7 +218,7 @@ def test_prepare_shard_options_match_jax(forced):
     pj = prepare_j(mj, force_layout=layout, col_shift=shift, sell_unit=8)
     pt = prepare_t(mt, force_layout=layout, col_shift=shift, sell_unit=8)
     assert pt.dia is not None and pt.sell_ks and pt.stream is None
-    assert all(rel is None for rel in pt.sell_rel)
+    assert all(pk is None for pk in pt.sell_pack)
     assert_same_plan(pj, pt)
 
 
@@ -255,25 +261,38 @@ def test_dia_apply_col_shift_matches_jax(shift, max_rows, dtype):
 
 @pytest.mark.parametrize("hl", [0, 128, 256])
 def test_sell_apply_col_base_matches_jax(hl):
-    """Halo mode: vpad is the window of v from block column col_base."""
-    mj, mt, shift = _shard()
-    pj = prepare_j(mj, col_shift=shift, sell_unit=8)
-    pt = prepare_t(mt, col_shift=shift, sell_unit=8)
-    n = mt.num_cols
-    v = np.random.default_rng(hl).standard_normal(n).astype(np.float32)
-    lo = shift - hl
-    win = np.zeros(1024 + 2 * hl, np.float32)
-    src = v[max(lo, 0):lo + win.shape[0]]
-    win[max(-lo, 0):max(-lo, 0) + src.shape[0]] = src
-    nbc = win.shape[0] // 8
-    sentinel = -(-n // 8)
-    want = np.asarray(spmv_j.sell_apply(
-        pj.sell_dense, pj.sell_bcol, pj.out_gather, jnp.asarray(win), nbc,
-        col_base=jnp.int32(lo // 8), global_sentinel=sentinel))
-    got = spmv_t.sell_apply(pt.sell_dense, pt.sell_bcol, pt.out_gather,
-                            torch.from_numpy(win), nbc, col_base=lo // 8,
-                            global_sentinel=sentinel)
-    np.testing.assert_allclose(got.numpy(), want, **PARITY)
+    """Halo mode: vpad is the window of v from column lo, which the port
+    reads through the shard's gathered pack at col_off = lo. On a shard
+    whose columns all lie in its own slice (as a halo plan proves), it
+    equals the JAX package's halo mode, its slabs read from block column
+    col_base = lo / 8. On the whole shard, far columns included, it
+    equals the JAX package's sell_apply over v zeroed outside the window:
+    a column outside reads 0."""
+    for own_cols in (True, False):
+        mj, mt, shift = _shard(own_cols=own_cols)
+        pj = prepare_j(mj, col_shift=shift, sell_unit=8)
+        pt = prepare_t(mt, col_shift=shift, sell_unit=8)
+        assert pt.sell_gpack.nnz > 0
+        n = mt.num_cols
+        v = np.random.default_rng(hl).standard_normal(n).astype(np.float32)
+        lo = shift - hl
+        win = np.zeros(1024 + 2 * hl, np.float32)
+        src = v[max(lo, 0):lo + win.shape[0]]
+        win[max(-lo, 0):max(-lo, 0) + src.shape[0]] = src
+        if own_cols:
+            want = spmv_j.sell_apply(
+                pj.sell_dense, pj.sell_bcol, pj.out_gather, jnp.asarray(win),
+                win.shape[0] // 8, col_base=jnp.int32(lo // 8),
+                global_sentinel=-(-n // 8))
+        else:
+            vz = np.zeros(n, np.float32)
+            vz[max(lo, 0):lo + win.shape[0]] = src
+            want = spmv_j.sell_apply(pj.sell_dense, pj.sell_bcol,
+                                     pj.out_gather, jnp.asarray(vz), n // 8)
+        got = spmv_t.sell_apply(pt.sell_chunks, pt.out_gather,
+                                torch.from_numpy(win), gpack=pt.sell_gpack,
+                                col_off=lo)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **PARITY)
 
 
 # ---------------------------------------------------------------------------

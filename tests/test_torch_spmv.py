@@ -7,6 +7,7 @@ against the scipy float64 oracle at rtol 1e-4, atol 1e-5 (the JAX suite's
 own tolerance). Also the raw-container path, the CLI, the errors of what
 is not ported, and the rule that the port never imports JAX."""
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -20,6 +21,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 import bmsparse_tpu as bj
+from bmsparse_tpu.ops import spmv as spmv_j
 from bmsparse_tpu.ops.plan import prepare as prepare_j
 
 import bmsparse_tpu_torch as bt
@@ -91,7 +93,7 @@ def test_main_path_tiers_all_run():
     r, c, vals, shape = CASES["roadnet"]()
     p = prepare_t(bt.coo_to_bmsparse(r, c, vals, shape, device="cpu"),
                   stream="off")
-    windowed = [rel is not None for rel in p.sell_rel]
+    windowed = [pk is not None for pk in p.sell_pack]
     assert p.dia is not None and any(windowed) and not all(windowed)
     assert p.ovf_ks
 
@@ -109,16 +111,14 @@ def test_road_packs_and_spmv_match_jax(name):
     pj = prepare_j(mj, stream="off")
     pt = prepare_t(mt, stream="off")
     assert pt.sell_ks == tuple(pj.sell_ks)
+    assert pt.sell_chunks == tuple(d.shape[1] for d in pj.sell_dense)
     np.testing.assert_array_equal(pt.out_gather.numpy(),
                                   np.asarray(pj.out_gather))
-    for g in range(len(pt.sell_ks)):
-        assert tuple(pt.sell_dense[g].shape) == pj.sell_dense[g].shape
-        for f in ("sell_ws", "sell_rel"):
-            x, y = getattr(pt, f)[g], getattr(pj, f)[g]
-            assert (x is None) == (y is None), f
-            if x is not None:
-                np.testing.assert_array_equal(x.numpy(), np.asarray(y))
-        assert (pt.sell_pack[g] is None) == (pt.sell_rel[g] is None)
+    for g, pk in enumerate(pt.sell_pack):
+        assert (pk is None) == (pj.sell_rel[g] is None)
+        if pk is not None:
+            np.testing.assert_array_equal(pk.ws.numpy(),
+                                          np.asarray(pj.sell_ws[g]))
     carried = prepared_from_numpy(mt, jax_plan_arrays(pj))
     windowed = [g for g, pk in enumerate(pt.sell_pack) if pk is not None]
     assert windowed and all(pt.sell_pack[g].cw == 64 for g in windowed)
@@ -144,7 +144,7 @@ def test_bf16_plan_matches_jax(name):
     mt = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
     pj = prepare_j(mj, dtype=jnp.bfloat16, stream="off")
     pt = prepare_t(mt, dtype=torch.bfloat16)
-    assert any(rel is not None for rel in pt.sell_rel)
+    assert any(pk is not None for pk in pt.sell_pack)
     v = _v(shape[1])
     u = bt.spmv(pt, torch.from_numpy(v)).numpy()
     np.testing.assert_allclose(
@@ -186,9 +186,14 @@ GATHER_CASES = {
 
 
 def _gather_plan(name):
+    """The port's plan of a GATHER_CASES case and the JAX package's."""
     (r, c, vals, shape), kw = GATHER_CASES[name]()
     m = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
     p = prepare_t(m, **kw)
+    kw_j = dict(kw, dtype=getattr(jnp, str(kw.get("dtype", torch.float32))
+                                  .removeprefix("torch.")))
+    pj = prepare_j(bj.coo_to_bmsparse(r, c, vals, shape, backend="host"),
+                   **kw_j)
     if name == "power_law":
         assert p.stream is not None
         assert np.diff(p.sell_gpack.row_seg.numpy()).max() >= 3
@@ -197,53 +202,56 @@ def _gather_plan(name):
         assert any(pk is not None for pk in p.sell_pack)
     if name == "bf16":
         assert p.sell_gpack.vals.dtype == torch.bfloat16
-    return m, p
+    return m, p, pj
 
 
-def _tiers(p):
-    """(dense, bcol, out_gather, windowed packs, gathered pack, rows) of
-    each SELL tier with a gathered pack."""
+def _tiers(p, pj):
+    """Each SELL tier of plan p with a gathered pack: (chunks, out_gather,
+    windowed packs, gathered pack, rows) beside the JAX plan pj's
+    (slabs, column arrays, out_gather) of the same tier."""
     return [t for t in (
-        (p.sell_dense, p.sell_bcol, p.out_gather, p.sell_pack, p.sell_gpack,
-         p.sell_rows),
-        (p.ovf_dense, p.ovf_bcol, p.ovf_gather, (), p.ovf_gpack, p.ovf_rows),
-    ) if t[4] is not None]
+        (p.sell_chunks, p.out_gather, p.sell_pack, p.sell_gpack,
+         p.sell_rows, pj.sell_dense, pj.sell_bcol, pj.out_gather),
+        (p.ovf_chunks, p.ovf_gather, (), p.ovf_gpack, p.ovf_rows,
+         pj.ovf_dense, pj.ovf_bcol, pj.ovf_gather),
+    ) if t[3] is not None]
 
 
-def _stacked(dense, groups):
+def _stacked(chunks, groups):
     """The stacked scalar rows of `groups` of a tier."""
-    bases = np.cumsum([0] + [d.shape[1] * 128 for d in dense])
+    bases = np.cumsum([0] + [c * 128 for c in chunks])
     return np.concatenate([np.arange(bases[g] * 8, bases[g + 1] * 8)
                            for g in groups] + [np.zeros(0, np.int64)])
 
 
+def _gathered(chunks, packs):
+    return [g for g in range(len(chunks))
+            if g >= len(packs) or packs[g] is None]
+
+
 @pytest.mark.parametrize("name", sorted(GATHER_CASES))
 def test_gathered_pack_matches_slab_gather(name):
-    """sell_apply on the tiers' gathered packs (sell_gather_plain) equals
-    the per-slot gather over the slabs (the halo path at col_base 0), and
-    sell_gather_plain writes the gathered groups' rows and the zero row
-    and nothing else; spmv meets the oracle."""
-    m, p = _gather_plan(name)
+    """sell_apply on the tiers' packs (sell_window_plain and
+    sell_gather_plain) equals the JAX package's sell_apply over its slabs
+    (XLA's per-slot gather), and sell_gather_plain writes the gathered
+    groups' rows and the zero row and nothing else; spmv meets the
+    oracle."""
+    m, p, pj = _gather_plan(name)
     n = p.block_cols * 8
     v = _v(m.num_cols)
     vpad = torch.zeros(n)
     vpad[: m.num_cols] = torch.from_numpy(v)
-    tiers = _tiers(p)
+    tiers = _tiers(p, pj)
     assert tiers
-    for dense, bcol, og, packs, gk, rows_total in tiers:
-        ncu = -(-m.num_cols // dense[0].shape[0])
-        args = (dense, bcol, og, vpad, p.block_cols)
-        got = sell_apply(*args, sell_pack=packs, gpack=gk)
-        want = sell_apply(*args, col_base=0, global_sentinel=ncu)
-        np.testing.assert_allclose(got.numpy(), want.numpy(), **PARITY)
-        with pytest.raises(ValueError, match="halo"):
-            sell_apply(*args, gpack=gk, col_base=0, global_sentinel=ncu)
+    for chunks, og, packs, gk, rows_total, dense, bcol, og_j in tiers:
+        got = sell_apply(chunks, og, vpad, packs=packs, gpack=gk)
+        want = np.asarray(spmv_j.sell_apply(
+            dense, bcol, og_j, jnp.asarray(vpad.numpy()), p.block_cols))
+        np.testing.assert_allclose(got.numpy(), want, **PARITY)
         out = torch.full(((rows_total + 1) * 8,), float("nan"))
         sell_gather_plain(gk, vpad, n, out)
-        gathered = [g for g in range(len(dense))
-                    if g >= len(packs) or packs[g] is None]
         written = np.zeros(out.numel(), bool)
-        written[_stacked(dense, gathered)] = True
+        written[_stacked(chunks, _gathered(chunks, packs))] = True
         written[rows_total * 8:] = True
         assert out[torch.from_numpy(~written)].isnan().all()
         assert not out[torch.from_numpy(written)].isnan().any()
@@ -256,14 +264,17 @@ def test_gathered_pack_matches_slab_gather(name):
 
 @pytest.mark.parametrize("name", sorted(GATHER_CASES))
 def test_gathered_pack_expands_to_slab(name):
-    """Each tier's gathered pack holds the nonzeros of the slabs of its
-    groups without a window, bit for bit, sorted by (row, column), and
-    its rows are exactly those groups' stacked rows and the zero row."""
-    m, p = _gather_plan(name)
-    for dense, bcol, og, packs, gk, rows_total in _tiers(p):
-        gathered = [g for g in range(len(dense))
-                    if g >= len(packs) or packs[g] is None]
-        want_rows = np.r_[_stacked(dense, gathered),
+    """Each tier's gathered pack holds the nonzeros of the JAX plan's
+    slabs of its groups without a window, bit for bit, sorted by (row,
+    column), and its rows are exactly those groups' stacked rows and the
+    zero row."""
+    m, p, pj = _gather_plan(name)
+    for chunks, og, packs, gk, rows_total, dense, bcol, _ in _tiers(p, pj):
+        dense = [torch.from_numpy(np.array(d).view(np.int16)).view(
+            torch.bfloat16) if np.asarray(d).dtype.name == "bfloat16"
+            else torch.from_numpy(np.array(d)) for d in dense]
+        gathered = _gathered(chunks, packs)
+        want_rows = np.r_[_stacked(chunks, gathered),
                           np.arange(rows_total * 8, rows_total * 8 + 8)]
         np.testing.assert_array_equal(gk.rows.numpy(), want_rows)
         seg_rows = np.repeat(np.arange(gk.rows.shape[0]),
@@ -273,7 +284,7 @@ def test_gathered_pack_expands_to_slab(name):
         assert (np.diff(row * m.num_cols + col) > 0).all()
         st = gk.rows.numpy().astype(np.int64)[row]
         brow, i = np.divmod(st, 8)
-        bases = np.cumsum([0] + [d.shape[1] * 128 for d in dense])
+        bases = np.cumsum([0] + [c * 128 for c in chunks])
         grp = np.searchsorted(bases, brow, "right") - 1
         cw = dense[0].shape[0]
         vals = gk.vals[:gk.nnz]
@@ -282,13 +293,59 @@ def test_gathered_pack_expands_to_slab(name):
             c, lane = np.divmod(brow[sel] - bases[g], 128)
             u, w = np.divmod(col[sel], cw)
             cap, kg = dense[g].shape[1:3]
-            b = bcol[g].numpy().reshape(cap, kg, 128)
+            b = np.asarray(bcol[g]).reshape(cap, kg, 128)
             k = np.argmax(b[c, :, lane] == u[:, None], axis=1)
             assert (b[c, k, lane] == u).all()
             slab = torch.zeros_like(dense[g])
             idx = tuple(torch.from_numpy(x) for x in (w, c, k, i[sel], lane))
             slab[idx] = vals[torch.from_numpy(np.nonzero(sel)[0])]
             _same_bits(slab, dense[g])
+
+
+def _tier_tensors(p):
+    """(name, tensor) of every tensor of the plan's SELL and overflow
+    tiers, their packs' fields included: every field of the plan but the
+    container, the DIA and stream tiers."""
+    for f in dataclasses.fields(p):
+        if f.name in ("m", "dense_flat_", "dia", "stream"):
+            continue
+        x = getattr(p, f.name)
+        for y in x if isinstance(x, tuple) else (x,):
+            if isinstance(y, torch.Tensor):
+                yield f.name, y
+            elif hasattr(y, "TENSORS"):
+                yield from ((k, getattr(y, k)) for k in y.TENSORS)
+
+
+# the tiers' row maps: the plan's and the packs' row, segment and window
+# tables (everything but the entries' values and columns)
+ROW_MAPS = ("out_gather", "ovf_gather", "rows", "seg_off", "row_seg",
+            "slice_off", "ws")
+NO_SLAB_CASES = {
+    "road_overflow": lambda: GATHER_CASES["road_overflow"]()[0],
+    "webgraph": lambda: tm.webgraph(16384, 8, seed=9),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NO_SLAB_CASES))
+def test_sell_tiers_hold_no_slab(name):
+    """The SELL and overflow tiers hold their nonzeros once and their row
+    maps, and no dense slab: their tensors' bytes stay under 1.5 x (the
+    tiers' nonzeros) x (itemsize + 4), plus the row maps' bytes."""
+    r, c, vals, shape = NO_SLAB_CASES[name]()
+    m = bt.coo_to_bmsparse(r, c, vals, shape, device="cpu")
+    p = prepare_t(m, stream="off")
+    packs = [pk for pk in (*p.sell_pack, p.sell_gpack, p.ovf_gpack)
+             if pk is not None]
+    nnz = sum(pk.nnz for pk in packs)
+    assert 0 < nnz <= m.nnz and p.sell_ks
+    total = maps = 0
+    for f, t in _tier_tensors(p):
+        b = t.numel() * t.element_size()
+        total += b
+        maps += b if f in ROW_MAPS else 0
+    itemsize = getattr(torch, p.plan_dtype).itemsize
+    assert total <= 1.5 * nnz * (itemsize + 4) + maps, (total, nnz, maps)
 
 
 @pytest.mark.parametrize("shape,density", [((24, 24), 0.15), ((64, 64), 0.1),
@@ -313,7 +370,7 @@ def test_float64_plan_runs_plain_on_cpu():
                             device="cpu")
     p = prepare_t(mt)
     assert p.plan_dtype == "float64"
-    assert all(rel is None for rel in p.sell_rel)
+    assert all(pk is None for pk in p.sell_pack)
     v = torch.from_numpy(_v(1024).astype(np.float64))
     u = bt.spmv(p, v)
     assert u.dtype == torch.float64

@@ -245,7 +245,7 @@ def test_stream_plan_moves_and_casts(jax_constants):
     assert_same_stream(p.stream, p.to("cpu").stream)
     # the stream tier keeps float32 when the block tiers are cast
     pb = cast_t(p, torch.bfloat16)
-    assert pb.sell_dense[0].dtype == torch.bfloat16
+    assert pb.sell_gpack.vals.dtype == torch.bfloat16
     assert pb.stream is p.stream
     # plans in other types have no stream tier, as in the JAX package
     assert prepare_t(mt, dtype=torch.bfloat16, stream="force").stream is None

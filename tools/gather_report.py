@@ -32,7 +32,6 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
@@ -47,7 +46,6 @@ def plan_summary(p) -> dict:
         "ndiags": len(p.dia_offsets), "sell_ks": list(p.sell_ks),
         "windowed_groups": sum(pk is not None for pk in p.sell_pack),
         "ovf_ks": list(p.ovf_ks), "stream": p.stream is not None,
-        "slab_bytes": cs.nbytes(*p.sell_dense, *p.ovf_dense),
         "packs": {tier: {"nnz": pk.nnz, "segments": pk.seg_off.numel() - 1,
                          "rows": pk.rows.numel(),
                          "bytes": cs.nbytes(*(getattr(pk, f)
@@ -75,10 +73,8 @@ def seg_sweep(p, vpad) -> dict:
 
     host = p.sell_gpack.to("cpu")
     e = host.nnz
-    row = np.repeat(np.repeat(np.arange(host.rows.numel()),
-                              np.diff(host.row_seg.numpy())),
-                    np.diff(host.seg_off.numpy()))
-    out = cs.gather_out(torch, p.sell_dense)
+    row = host.entry_rows().numpy()
+    out = cs.gather_out(torch, p.sell_rows, vpad.device)
     n = vpad.shape[0]
     res, keep = {}, sgk.SEG_LEN
     try:
